@@ -1,0 +1,625 @@
+"""Drive the PyTorch/CUDA port of the streaming index on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order (any failure raises and exits non-zero):
+
+  1. the card (``nvidia-smi``), torch/CUDA versions, the kernel build;
+  2. every CUDA kernel against its plain torch version on the card, at
+     the main path's shapes, bit for bit — plus its time, the plain
+     version's, one library call's and the bound the card's memory rate
+     sets;
+  3. the main path at full width: a Zipf(1.0) tweet stream over a 2**20
+     term vocabulary into Earlybird's 2**23-tweet segment under the
+     paper's production pools Z^g = <1, 4, 7, 11>, in 4096-tweet arrival
+     batches; one rollover (freeze + slice reclamation), 2**20 more
+     tweets into the recycled pools, then a 64-query AOL-like batch
+     through the batched conjunctive / disjunctive / phrase / top-k
+     routes, held against a numpy brute force over the stream;
+  4. compaction and the sequential oracle route at a smaller depth:
+     2**16-tweet segments, >= 3 rollovers with CompactionPolicy(fanout=2),
+     every query kind batched and ``batched=False`` (the per-segment
+     kernels), which must agree bit for bit and with the brute force.
+
+The last two lines are the kernel table as JSON, the card's name and
+power limit, and the result line.  The script imports only torch, numpy
+and the port (``src/repro_torch``); it needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+sys.path.insert(0, _SRC)
+
+from repro_torch.core import analytical  # noqa: E402
+from repro_torch.core import pointers  # noqa: E402
+from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
+from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
+from repro_torch.core.segments import CompactionPolicy  # noqa: E402
+from repro_torch.data import synth  # noqa: E402
+from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
+from repro_torch.kernels.segment_intersect import (  # noqa: E402
+    SEG_BLOCK, decode_packed, decode_stacked, pack_docids, stack_packed)
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+BATCH = 4096                 # arrival batch: under a second of 2013 traffic
+Z = (1, 4, 7, 11)            # the paper's production pools Z^g
+REPLACES = {
+    "bulk_append": "src/repro/kernels/bulk_append.py:87",
+    "segment_intersect_mask_batched":
+        "src/repro/kernels/segment_intersect.py:496",
+    "intersect_mask": "src/repro/kernels/postings_intersect.py:102",
+    "segment_intersect_mask": "src/repro/kernels/segment_intersect.py:366",
+}
+SOURCES = {
+    "bulk_append": "src/repro_torch/csrc/bulk_append.cu",
+    "segment_intersect_mask_batched":
+        "src/repro_torch/csrc/segment_intersect.cu",
+    "intersect_mask": "src/repro_torch/csrc/postings_intersect.cu",
+    "segment_intersect_mask": "src/repro_torch/csrc/segment_intersect.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def require_equal(name: str, got, want) -> int:
+    """Bit-identity of a kernel's output with its plain version; returns
+    the max absolute difference (0, or this raises)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err or not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({bad} lanes differ)")
+    return err
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# data: the tweet stream and the brute-force oracle
+# ---------------------------------------------------------------------------
+def make_stream(vocab: int, n_docs: int, seed: int) -> np.ndarray:
+    spec = synth.CorpusSpec(vocab=vocab, n_docs=n_docs, mean_len=11,
+                            max_len=70, alpha=1.0, seed=seed)
+    return synth.zipf_corpus(spec)
+
+
+class BruteForce:
+    """Per-term (doc, position) lists straight from the stream matrix,
+    built chunk by chunk on the host for the terms the queries use."""
+
+    def __init__(self, docs: np.ndarray, terms, vocab: int,
+                 chunk: int = 1 << 20):
+        need = np.zeros(vocab + 1, bool)           # index -1 -> vocab
+        need[np.asarray(sorted(set(terms)), np.int64)] = True
+        rows, cols, vals = [], [], []
+        for s in range(0, docs.shape[0], chunk):
+            part = docs[s: s + chunk]
+            r, c = np.nonzero(need[part])
+            rows.append(r + s)
+            cols.append(c)
+            vals.append(part[r, c])
+        rows, cols, vals = (np.concatenate(x) for x in (rows, cols, vals))
+        order = np.argsort(vals, kind="stable")    # (doc, pos) order kept
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        cut = np.searchsorted(vals, np.arange(vocab + 1))
+        self.lists = {int(t): (rows[cut[t]: cut[t + 1]].astype(np.int64),
+                               cols[cut[t]: cut[t + 1]].astype(np.int64))
+                      for t in set(terms)}
+
+    def docs_of(self, t: int) -> np.ndarray:
+        return np.unique(self.lists[int(t)][0])
+
+    def conjunctive(self, terms) -> np.ndarray:
+        out = self.docs_of(terms[0])
+        for t in terms[1:]:
+            out = np.intersect1d(out, self.docs_of(t))
+        return out[::-1]
+
+    def disjunctive(self, terms) -> np.ndarray:
+        out = self.docs_of(terms[0])
+        for t in terms[1:]:
+            out = np.union1d(out, self.docs_of(t))
+        return out[::-1]
+
+    def phrase(self, t1: int, t2: int) -> np.ndarray:
+        d1, p1 = self.lists[int(t1)]
+        d2, p2 = self.lists[int(t2)]
+        k1 = d1 * 256 + p1
+        hit = np.isin(k1 + 1, d2 * 256 + p2)
+        return np.unique(d1[hit])[::-1]
+
+
+def check_answers(kind: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(
+                f"{kind} query {i}: engine returned {len(g)} docs, brute "
+                f"force {len(w)}")
+
+
+def query_batch(docs, vocab: int, n: int, seed: int):
+    qs = synth.query_log("aol", n, docs, vocab, seed=seed)
+    queries = [tuple(int(t) for t in row if t >= 0) for row in qs]
+    pairs = [(q[0], q[1] if len(q) > 1 else q[0]) for q in queries]
+    return queries, pairs
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version, at main-path shapes
+# ---------------------------------------------------------------------------
+def _lists(rng, n_docs: int, densities):
+    """Ascending docid sets of the given densities over one segment."""
+    out = []
+    for p in densities:
+        if p <= 0:
+            out.append(np.zeros(0, np.uint32))
+            continue
+        m = rng.random(n_docs) < p
+        out.append(np.nonzero(m)[0].astype(np.uint32))
+    return out
+
+
+def _touched_bytes(a_ids, b):
+    """Bytes of the distinct b-blocks some valid a-lane can match (the
+    kernel's data-dependent reads: block entry + 32*bw int64 words)."""
+    rows, nb = b.firsts.shape
+    valid = a_ids != 0xFFFFFFFF
+    j = torch.searchsorted(b.firsts.contiguous(), a_ids.contiguous(),
+                           right=True) - 1
+    j = torch.minimum(j, ((b.ns.long() - 1) // SEG_BLOCK)[:, None])
+    ok = valid & (j >= 0) & (b.ns[:, None] > 0)
+    key = torch.unique((torch.arange(rows, device=a_ids.device)[:, None]
+                        * nb + j)[ok])
+    bw = b.bws.reshape(-1)[key].long()
+    return int((16 + 32 * bw * 8).sum())
+
+
+def _list_bytes(bws, ns) -> int:
+    """Bytes of the real (non-pad) blocks of a stack: block tables plus
+    32*bw int64 payload words each."""
+    nblk = (ns.long() + SEG_BLOCK - 1) // SEG_BLOCK
+    real = (torch.arange(bws.shape[-1], device=bws.device)[None, :]
+            < nblk[:, None])
+    return int(((16 + 32 * bws.long() * 8) * real).sum())
+
+
+def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
+                  q_rows: int, seed: int):
+    dev = torch.device("cuda")
+    rows = {}
+    rng = np.random.default_rng(seed)
+
+    # -- bulk_append on a real arrival batch into the full-size pools ---
+    seg = ActiveSegment(layout, vocab, device="cuda")
+    for i in range(4):
+        seg.ingest(docs[i * BATCH:(i + 1) * BATCH])
+    batch = torch.as_tensor(docs[4 * BATCH: 5 * BATCH], device=dev)
+    terms, plist, valid = flatten(batch, seg.next_docid)
+    scat, _, _, _ = seg._ingest.plan(
+        seg.state, terms, plist, torch.zeros_like(terms), valid)
+    st = seg.state
+    k_out = [x.clone() for x in (st.heap, st.tail, st.freq)]
+    r_out = [x.clone() for x in (st.heap, st.tail, st.freq)]
+    ops.bulk_append(*k_out, *scat)
+    ref.bulk_append_ref(*r_out, *scat)
+    torch.cuda.synchronize()
+    err = max(require_equal(f"bulk_append/{name}", g, w)
+              for name, g, w in zip(("heap", "tail", "freq"), k_out, r_out))
+    n = scat[0].shape[0]
+    H, V = st.heap.shape[0], st.tail.shape[0]
+    live = [(a >= 0) & (a < cap) for a, cap in
+            ((scat[0], H), (scat[2], H), (scat[4], V))]
+    landed = [int(m.sum()) for m in live]
+    skips = n - landed[0]
+    if skips == 0:
+        raise AssertionError("bulk_append case has no skip lanes")
+    nbytes = n * (6 * 8 + 4) + 8 * (landed[0] + landed[1]) + 12 * landed[2]
+    pre = [(scat[0][live[0]], scat[1][live[0]]),
+           (scat[2][live[1]], scat[3][live[1]]),
+           (scat[4][live[2]], scat[5][live[2]]),
+           (scat[4][live[2]], scat[6][live[2]])]
+
+    def library():
+        for tgt, (a, v) in zip((r_out[0], r_out[0], r_out[1], r_out[2]),
+                               pre):
+            tgt.index_put_((a,), v)
+
+    rows["bulk_append"] = dict(
+        ms=cuda_ms(lambda: ops.bulk_append(*k_out, *scat)),
+        plain_ms=cuda_ms(lambda: ref.bulk_append_ref(*r_out, *scat)),
+        library_ms=cuda_ms(library), bytes=nbytes, max_abs_err=err,
+        shape=f"N={n} lanes ({landed[0]} postings, {landed[1]} pointers, "
+              f"{landed[2]} terms land; {skips} skip), heap {H}")
+    del seg, st, k_out, r_out, pre
+    torch.cuda.empty_cache()
+
+    # -- the segment kernels on lists shaped like a full segment's ------
+    # a query batch's driving pairs: a head term, torso and tail terms,
+    # a pad row (empty list); densities give bw 1, 2 and 4 blocks
+    dens_a = [0.55, 0.06, 0.004, 0.0004, 3e-5, 2e-6, 0.0, 0.3][:q_rows]
+    dens_b = [0.3, 0.5, 0.02, 0.55, 0.001, 0.2, 0.4, 0.0][:q_rows]
+    la = _lists(rng, seg_docs, dens_a)
+    lb = _lists(rng, seg_docs, dens_b)
+    pa = [pack_docids(x) for x in la]
+    pb = [pack_docids(x) for x in lb]
+    bws = np.concatenate([np.asarray(p.bws[: -(-p.n // SEG_BLOCK)])
+                          for p in pa + pb if p.n])
+    if not {1, 2, 4} <= set(bws.tolist()):
+        raise AssertionError(f"kernel cases miss a byte width: "
+                             f"{sorted(set(bws.tolist()))}")
+    sa = stack_packed(pa).to(dev)
+    sb = stack_packed(pb).to(dev)
+    got = ops.segment_intersect_mask_batched(sa, sb)
+    want = ref.segment_intersect_mask_batched_ref(sa, sb)
+    torch.cuda.synchronize()
+    err = require_equal("segment_intersect_mask_batched", got, want)
+    a_ids, b_ids = decode_stacked(sa), decode_stacked(sb)
+    rows["segment_intersect_mask_batched"] = dict(
+        ms=cuda_ms(lambda: ops.segment_intersect_mask_batched(sa, sb)),
+        plain_ms=cuda_ms(
+            lambda: ref.segment_intersect_mask_batched_ref(sa, sb)),
+        library_ms=cuda_ms(lambda: torch.gather(
+            b_ids, 1, torch.searchsorted(b_ids, a_ids).clamp_(
+                max=b_ids.shape[1] - 1)) == a_ids),
+        bytes=_list_bytes(sa.bws, sa.ns) + _touched_bytes(a_ids, sb)
+        + got.numel() * 4, max_abs_err=err,
+        hits=int(got.sum()),
+        shape=f"N={sa.firsts.shape[0]} rows, NB={sa.n_blocks} blocks "
+              f"(W={sa.n_blocks * SEG_BLOCK}), PW={sa.n_words}")
+
+    # -- single pair: the head list against a torso list ---------------
+    a1, b1 = pa[0].to(dev), pb[2].to(dev)
+    got = ops.segment_intersect_mask(a1, b1)
+    want = ref.segment_intersect_mask_ref(a1, b1)
+    torch.cuda.synchronize()
+    err = require_equal("segment_intersect_mask", got, want)
+    d_a, d_b = decode_packed(a1), decode_packed(b1)
+    s1a, s1b = stack_packed([pa[0]]).to(dev), stack_packed([pb[2]]).to(dev)
+    rows["segment_intersect_mask"] = dict(
+        ms=cuda_ms(lambda: ops.segment_intersect_mask(a1, b1)),
+        plain_ms=cuda_ms(lambda: ref.segment_intersect_mask_ref(a1, b1)),
+        library_ms=cuda_ms(lambda: torch.gather(
+            d_b, 0, torch.searchsorted(d_b, d_a).clamp_(
+                max=d_b.shape[0] - 1)) == d_a),
+        bytes=_list_bytes(s1a.bws, s1a.ns)
+        + _touched_bytes(decode_stacked(s1a), s1b) + got.numel() * 4,
+        max_abs_err=err,
+        hits=int(got.sum()),
+        shape=f"a {pa[0].n} docids in {pa[0].n_blocks} blocks, b "
+              f"{pb[2].n} in {pb[2].n_blocks}")
+
+    # -- intersect_mask: two active lists at the engine's max_len ------
+    max_len = 1 << (seg_docs - 1).bit_length()
+    act = []
+    for x in (la[0], lb[2]):
+        t = torch.full((max_len,), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+        t[: x.size] = torch.from_numpy(x.astype(np.int64)).to(dev)
+        act.append(t)
+    a2, b2 = act
+    got = ops.intersect_mask(a2, b2)
+    want = ref.intersect_mask_ref(a2, b2)
+    torch.cuda.synchronize()
+    err = require_equal("intersect_mask", got, want)
+    rows["intersect_mask"] = dict(
+        ms=cuda_ms(lambda: ops.intersect_mask(a2, b2)),
+        plain_ms=cuda_ms(lambda: ref.intersect_mask_ref(a2, b2)),
+        library_ms=cuda_ms(lambda: torch.gather(
+            b2, 0, torch.searchsorted(b2, a2).clamp_(max=max_len - 1))
+            == a2),
+        bytes=(a2.numel() + b2.numel()) * 8 + got.numel() * 4,
+        max_abs_err=err,
+        hits=int(got.sum()),
+        shape=f"na=nb={max_len} ({la[0].size} and {lb[2].size} valid)")
+
+    for name, r in rows.items():
+        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"kernel {name}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), "
+            f"bit-identical")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width
+# ---------------------------------------------------------------------------
+def size_layout(docs: np.ndarray, vocab: int, seg_docs: int,
+                headroom: float = 1.25):
+    """Pools sized by the analytical model from the stream's own
+    per-segment term frequencies (the larger of the first segment and
+    the rest), with headroom, rounded up to powers of two."""
+    need = np.zeros(len(Z), np.int64)
+    fmax = 1
+    for s in range(0, docs.shape[0], seg_docs):
+        f = synth.term_freqs(docs[s: s + seg_docs], vocab)
+        f = f[f > 0]
+        fmax = max(fmax, int(f.max()))
+        n_sl = analytical.slices_needed(Z, f)
+        for p in range(len(Z)):
+            # slice i of a chain lives in pool min(i, P-1)
+            cnt = np.clip(n_sl - p, 0, None) if p == len(Z) - 1 else (
+                n_sl > p).astype(np.int64)
+            need[p] = max(need[p], int(cnt.sum()))
+    cap = pointers.production_layout().max_slices
+    spp = tuple(min(1 << int(np.ceil(np.log2(max(n * headroom, 2)))),
+                    cap(p)) for p, n in enumerate(need))
+    return pointers.production_layout(spp), need, fmax
+
+
+def run_queries(eng, queries, pairs, q_rows: int):
+    out = {}
+    for kind, batch, call in (
+            ("conjunctive", queries, eng.conjunctive_batch),
+            ("disjunctive", queries, eng.disjunctive_batch),
+            ("phrase", pairs, eng.phrase_batch),
+            ("topk", queries,
+             lambda qs: eng.topk_conjunctive_batch(qs, 10))):
+        res, times = [], []
+        for s in range(0, len(batch), q_rows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res += call(batch[s: s + q_rows])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[kind] = (res, times)
+    return out
+
+
+def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
+    """One traced ingest batch and one traced query batch of each kind:
+    wall time (host clock around a synchronised call), device-busy time
+    (the sum of the device's kernel and copy durations: one stream, so
+    they do not overlap) and the top device kernels by time.  Runs after
+    the measured main path, whose launch counts it leaves alone."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = [("ingest", lambda: eng.ingest(docs))] + [
+        (kind, lambda c=call, b=batch: c(b[:q_rows])) for kind, batch, call
+        in (("conjunctive", queries, eng.conjunctive_batch),
+            ("disjunctive", queries, eng.disjunctive_batch),
+            ("phrase", pairs, eng.phrase_batch),
+            ("topk", queries,
+             lambda qs: eng.topk_conjunctive_batch(qs, 10)))]
+    for name, fn in calls:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # device-side events only (kernels and copies): the CPU-side
+        # operator events carry their kernels' time too
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t, c = per.get(e.name, (0.0, 0))
+                per[e.name] = (t + e.device_time_total / 1e3, c + 1)
+        busy = sum(t for t, _ in per.values())
+        top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
+                     key=lambda x: -x[1])[:6]
+        log(f"profile {name}: wall {wall:.1f} ms, device busy {busy:.1f} "
+            f"ms ({100 * (1 - busy / wall):.0f}% idle); top: "
+            + "; ".join(f"{k} {t:.1f} ms x{c}" for k, t, c in top))
+
+
+def oracle_answers(bf: BruteForce, queries, pairs):
+    conj = [bf.conjunctive(q) for q in queries]
+    return {"conjunctive": conj,
+            "disjunctive": [bf.disjunctive(q) for q in queries],
+            "phrase": [bf.phrase(*p) for p in pairs],
+            "topk": [c[:10] for c in conj]}
+
+
+def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
+               extra_docs: int, q_rows: int, n_queries: int, fmax: int):
+    max_len = 1 << int(fmax - 1).bit_length()
+    max_slices = int(analytical.slices_needed(Z, fmax)) + 1
+    log(f"main path: max_len {max_len}, max_slices {max_slices}, "
+        f"query rows per batch {q_rows}")
+    torch.cuda.reset_peak_memory_stats()
+    eng = LifecycleEngine(layout, vocab, seg_docs, max_slices=max_slices,
+                          max_len=max_len, device="cuda")
+    ops.reset_launch_counts()
+    total = seg_docs + extra_docs
+    t_first = t_roll = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, total, BATCH):
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+        eng.ingest(docs[s: s + BATCH])
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize()
+            t_roll = time.perf_counter() - t0 - t_first
+            hw_slots = eng.stats.high_water_slots
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    eng.check_health()
+    if eng.stats.rollovers != 1:
+        raise AssertionError(f"expected one rollover, saw "
+                             f"{eng.stats.rollovers}")
+    t_after = t_all - t_first - t_roll
+    hw_after = eng.memory_high_water_slots()
+    log(f"ingest: {seg_docs - BATCH} docs in {t_first:.3f} s = "
+        f"{(seg_docs - BATCH) / t_first:.0f} docs/s; the batch that "
+        f"filled the segment + rollover (freeze, reclaim) "
+        f"{t_roll:.3f} s; {extra_docs} docs into recycled slices in "
+        f"{t_after:.3f} s = {extra_docs / t_after:.0f} docs/s")
+    log(f"pools: high-water {hw_slots} slots at rollover, {hw_after} after "
+        f"{extra_docs} more docs (bounded by reclamation); live "
+        f"{eng.memory_slots_used()}")
+    queries, pairs = query_batch(docs[:total], vocab, n_queries, seed=1)
+    res = run_queries(eng, queries, pairs, q_rows)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for kind, (_, times) in res.items():
+        log(f"query {kind}: {len(times)} batches of {q_rows}: "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms")
+    log(f"main-path launches: {json.dumps(counts)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    for k in ("bulk_append", "segment_intersect_mask_batched"):
+        if counts[k] <= 0:
+            raise AssertionError(f"main path never launched {k}")
+    profile_paths(eng, docs[total: total + BATCH], queries, pairs, q_rows)
+    bf = BruteForce(docs[:total], {t for q in queries for t in q}, vocab)
+    want = oracle_answers(bf, queries, pairs)
+    for kind, (got, _) in res.items():
+        check_answers(kind, got, want[kind])
+    log(f"brute force: {n_queries} queries of each kind agree "
+        f"(conjunctive hits {sum(len(x) for x in want['conjunctive'])}, "
+        f"disjunctive {sum(len(x) for x in want['disjunctive'])}, phrase "
+        f"{sum(len(x) for x in want['phrase'])})")
+    summary = dict(
+        ingest_docs_per_s=(seg_docs - BATCH) / t_first,
+        recycled_docs_per_s=extra_docs / t_after, rollover_s=t_roll,
+        query_ms={k: float(np.median(v[1])) for k, v in res.items()},
+        high_water_slots=hw_after, peak_bytes=peak, launches=counts)
+    del eng
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4: compaction and the sequential route, smaller depth
+# ---------------------------------------------------------------------------
+def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
+                     n_queries: int):
+    n_docs = docs.shape[0]
+    layout, _, fmax = size_layout(docs, vocab, seg_docs)
+    eng = LifecycleEngine(
+        layout, vocab, seg_docs,
+        max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+        max_len=1 << int(fmax - 1).bit_length(),
+        compaction=CompactionPolicy(fanout=2), device="cuda")
+    for s in range(0, n_docs, BATCH):
+        eng.ingest(docs[s: s + BATCH])
+    eng.check_health()
+    tiers = [fz.tier for fz in eng.segments.frozen]
+    if eng.stats.rollovers < 3 or eng.stats.compactions < 1:
+        raise AssertionError(f"rollovers {eng.stats.rollovers}, "
+                             f"compactions {eng.stats.compactions}")
+    queries, pairs = query_batch(docs, vocab, n_queries, seed=2)
+    batched = run_queries(eng, queries, pairs, n_queries)
+    eng.batched = False
+    ops.reset_launch_counts()
+    seq = run_queries(eng, queries, pairs, n_queries)
+    counts = ops.launch_counts()
+    bf = BruteForce(docs, {t for q in queries for t in q}, vocab)
+    want = oracle_answers(bf, queries, pairs)
+    for kind in batched:
+        check_answers(f"{kind} batched", batched[kind][0], want[kind])
+        check_answers(f"{kind} sequential", seq[kind][0], want[kind])
+    log(f"sequential phase: {eng.stats.rollovers} rollovers, "
+        f"{eng.stats.compactions} compactions, frozen tiers {tiers}; "
+        f"{n_queries} queries of each kind batched == sequential == brute "
+        f"force; sequential-route launches {json.dumps(counts)}")
+    for k in ("intersect_mask", "segment_intersect_mask"):
+        if counts[k] <= 0:
+            raise AssertionError(f"sequential route never launched {k}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--segment-log2", type=int, default=23,
+                    help="docs per segment = 2**N (the vocabulary scales "
+                         "with it: 2**(N-3) terms)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    log(f"card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    build_s = _cuda.build_seconds()
+    log(f"kernels built and loaded in {build_s:.1f} s")
+
+    seg_docs = 1 << args.segment_log2
+    vocab = 1 << (args.segment_log2 - 3)
+    extra = seg_docs // 8
+    t0 = time.perf_counter()
+    # one more batch than the main path ingests: the traced ingest batch
+    docs = make_stream(vocab, seg_docs + extra + BATCH, seed=0)
+    layout, need, fmax = size_layout(docs, vocab, seg_docs)
+    log(f"stream: {docs.shape[0]} tweets, vocab {vocab}, "
+        f"{int((docs >= 0).sum())} postings, head-term segment freq "
+        f"{fmax}; pools {layout.slices_per_pool} slices for an analytic "
+        f"need of {tuple(int(x) for x in need)} ({layout.total_slots} "
+        f"slots); made in {time.perf_counter() - t0:.1f} s")
+
+    q_rows = 8
+    kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows, seed=5)
+    main_sum = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
+                          n_queries=64, fmax=fmax)
+    small = 1 << 16
+    sdocs = make_stream(1 << 16, 4 * small + small // 2, seed=7)
+    seq_counts = phase_sequential(sdocs, 1 << 16, small, n_queries=16)
+
+    table = []
+    for name in ("bulk_append", "segment_intersect_mask_batched",
+                 "intersect_mask", "segment_intersect_mask"):
+        r = kernels[name]
+        on_main = name in ("bulk_append", "segment_intersect_mask_batched")
+        table.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=(main_sum["launches"] if on_main
+                      else seq_counts)[name],
+            path="main" if on_main else "sequential",
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by="bytes",
+            library_ms=r["library_ms"]))
+    log("main path: " + json.dumps({
+        k: v for k, v in main_sum.items() if k != "launches"}))
+    log(f"wall {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": table}))
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

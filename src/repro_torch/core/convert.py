@@ -1,0 +1,94 @@
+"""Carry index state across between the reference package and the port.
+
+The boundary is plain numpy in the reference's dtypes, so neither
+package imports the other: the seven ``PoolState`` leaves (uint32 heap
+and tail, int32 watermark/freq/free_list/free_count, bool overflow) and
+each frozen segment's CSR (``offsets``/``data``/``n_docs``/``doc_base``/
+``tier``).  :func:`load_lifecycle` installs such a state into a port
+``LifecycleEngine`` — which then computes exactly what the reference
+engine would — and :func:`dump_lifecycle` reads one back out.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import ActiveSegment
+from repro_torch.core.segments import FrozenSegment
+from repro_torch.core.slicepool import PoolState
+
+# reference dtype of each PoolState leaf; torch carries uint32 as int64
+POOL_DTYPES = {"heap": np.uint32, "watermark": np.int32, "tail": np.uint32,
+               "freq": np.int32, "overflow": np.bool_,
+               "free_list": np.int32, "free_count": np.int32}
+FROZEN_FIELDS = ("offsets", "data", "n_docs", "doc_base", "tier")
+
+
+def pool_state_from_numpy(leaves: Mapping[str, np.ndarray],
+                          device="cuda") -> PoolState:
+    """The port's ``PoolState`` from the reference's seven leaves."""
+    out = {}
+    for f, dt in POOL_DTYPES.items():
+        a = np.asarray(leaves[f])
+        if a.dtype != dt:
+            raise TypeError(f"leaf {f}: expected {np.dtype(dt)}, got "
+                            f"{a.dtype}")
+        # astype copies into a contiguous array and keeps 0-d leaves 0-d
+        out[f] = torch.from_numpy(
+            a.astype(np.int64 if dt is np.uint32 else dt)).to(device)
+    return PoolState(**out)
+
+
+def pool_state_to_numpy(state: PoolState) -> Dict[str, np.ndarray]:
+    """The reference's seven leaves (its dtypes) from a port state."""
+    return {f: getattr(state, f).cpu().numpy().astype(dt)
+            for f, dt in POOL_DTYPES.items()}
+
+
+def frozen_from_numpy(fz) -> FrozenSegment:
+    """A port ``FrozenSegment`` from anything with the CSR fields (the
+    reference's ``FrozenSegment``, or a mapping of them)."""
+    get = (fz.__getitem__ if isinstance(fz, Mapping)
+           else lambda f: getattr(fz, f))
+    return FrozenSegment(offsets=np.asarray(get("offsets"), np.int64),
+                         data=np.asarray(get("data"), np.uint32),
+                         n_docs=int(get("n_docs")),
+                         doc_base=int(get("doc_base")),
+                         freed_slices=None, tier=int(get("tier")))
+
+
+def frozen_to_numpy(fz: FrozenSegment) -> Dict[str, object]:
+    return {f: getattr(fz, f) for f in FROZEN_FIELDS}
+
+
+def load_lifecycle(engine, leaves: Mapping[str, np.ndarray],
+                   frozen: Sequence, *, next_docid: int, doc_base: int,
+                   n_rollovers: int = 0, n_compactions: int = 0) -> None:
+    """Install a reference engine's state into the port ``engine``: the
+    active segment's pool leaves and docid count, the frozen segments
+    (oldest first), the docid base and the rollover/compaction
+    counters."""
+    segs = engine.segments
+    state = pool_state_from_numpy(leaves, engine.device)
+    segs.active = ActiveSegment(segs.layout, segs.vocab_size,
+                                max_docs=segs.docs_per_segment, state=state,
+                                next_docid=int(next_docid),
+                                bulk_ingest=segs.bulk_ingest,
+                                device=str(engine.device))
+    segs.frozen = [frozen_from_numpy(fz) for fz in frozen]
+    segs._doc_base = int(doc_base)
+    segs.n_rollovers = int(n_rollovers)
+    segs.n_compactions = int(n_compactions)
+    engine._sync_frozen()
+
+
+def dump_lifecycle(engine) -> Dict[str, object]:
+    """The inverse of :func:`load_lifecycle`, as plain numpy/ints."""
+    segs = engine.segments
+    return dict(leaves=pool_state_to_numpy(segs.active.state),
+                frozen=[frozen_to_numpy(fz) for fz in segs.frozen],
+                next_docid=segs.active.next_docid, doc_base=segs._doc_base,
+                n_rollovers=segs.n_rollovers,
+                n_compactions=segs.n_compactions)

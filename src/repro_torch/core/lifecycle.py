@@ -1,0 +1,642 @@
+"""Streaming lifecycle engine (paper §3.1's full loop, closed).
+
+The active segment fills, rolls over into a frozen read-only CSR
+segment, its slices return to the pool free lists
+(:func:`repro_torch.core.slicepool.release_slices`), and the next
+active segment recycles them — so the heap high-water mark is bounded by
+ONE segment's demand while queries still see every frozen segment.
+Queries span the active pool and all frozen segments:
+
+  * **Active pool** — :mod:`repro_torch.core.query`.
+  * **Frozen segments** — each wrapped in a :class:`PackedSegment`:
+    per-term GLOBAL docid lists gap-compressed into 128-docid blocks
+    (:mod:`repro_torch.kernels.segment_intersect`); conjunctions run the
+    fused decode+intersect CUDA kernel.
+  * **Merge** — every segment owns a disjoint ascending docid range, so
+    per-segment descending lists concatenated newest-segment-first ARE
+    the global reverse-chronological result.
+
+Queries route through :mod:`repro_torch.core.qexec` by default
+(``batched=True``); the per-query host loop (``batched=False``) is the
+bit-exactness oracle.  The engine's tensors live on ``device`` ("cuda"
+unless the caller asks for the CPU), and the kernels run where the
+tensors are.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import postings as post
+from repro_torch.core import qexec
+from repro_torch.core import query as q
+from repro_torch.core import segments as seg_mod
+from repro_torch.core import slicepool
+from repro_torch.core.pointers import PoolLayout
+from repro_torch.kernels.segment_intersect import (PackedList,
+                                                   decode_packed,
+                                                   pack_docids)
+
+_SCORED = ("scored retrieval is the next slice of the port (ROADMAP.md, "
+           "Queue 1 item 7): not yet ported")
+
+
+# ---------------------------------------------------------------------------
+# Frozen segments, device-queryable
+# ---------------------------------------------------------------------------
+class PackedSegment:
+    """Query-side view of one frozen segment: per term, the GLOBAL
+    ascending docid list as a block-gap-compressed :class:`PackedList`
+    (numpy leaves), packed lazily on first use and cached."""
+
+    def __init__(self, seg):
+        self.seg = seg
+        self.doc_base = int(seg.doc_base)
+        self._packed: Dict[int, PackedList] = {}
+
+    def docids_asc(self, term: int) -> np.ndarray:
+        """Ascending GLOBAL docids of ``term`` in this segment."""
+        rel = self.seg.docids_desc(int(term))[::-1]
+        return rel.astype(np.int64) + self.doc_base
+
+    def packed(self, term: int) -> PackedList:
+        term = int(term)
+        got = self._packed.get(term)
+        if got is None:
+            ids = self.docids_asc(term)
+            if ids.size and ids[-1] >= 0xFFFFFFFF:
+                raise OverflowError(
+                    f"global docid {int(ids[-1])} exceeds the uint32 "
+                    f"docid space; reshard or reset doc_base")
+            got = pack_docids(ids.astype(np.uint32))
+            self._packed[term] = got
+        return got
+
+    def postings_asc(self, term: int) -> np.ndarray:
+        """Ascending packed (segment-relative docid, position) postings
+        — the positional substrate for phrase queries."""
+        return self.seg.postings(int(term))
+
+    def bounds(self, term: int) -> tuple:
+        """O(1) ``(n_postings, first_gid, last_gid)`` GLOBAL summary,
+        without forcing a pack."""
+        c, f, last = self.seg.docid_bounds(int(term))
+        if not c:
+            return 0, 0, 0
+        return c, f + self.doc_base, last + self.doc_base
+
+    def warm(self, terms: Sequence[int]) -> None:
+        for t in terms:
+            self.packed(t)
+
+    def tf_asc(self, term: int):
+        raise NotImplementedError(_SCORED)
+
+    def scored(self, term: int):
+        raise NotImplementedError(_SCORED)
+
+
+def conjunctive_packed(pseg: PackedSegment, terms: Sequence[int], *,
+                       use_kernel: bool = True,
+                       device="cuda") -> np.ndarray:
+    """Descending GLOBAL docids holding every term, within one frozen
+    segment.  The driving intersection of the two smallest lists runs
+    ``kernels.ops.segment_intersect_mask`` (the fused decode+intersect
+    CUDA kernel for CUDA tensors); further terms fold in with the
+    membership test on the already-compacted list."""
+    from repro_torch.kernels import ops
+    packs = sorted((pseg.packed(t) for t in terms), key=lambda p: p.n)
+    if not packs or packs[0].n == 0:
+        return np.zeros(0, np.int64)
+    a = packs[0].to(device)
+    cur = decode_packed(a)                    # ascending, INVALID-padded
+    n = a.n
+    for i, pb in enumerate(packs[1:]):
+        if pb.n == 0:
+            return np.zeros(0, np.int64)
+        b = pb.to(device)
+        if i == 0 and use_kernel:
+            mask = ops.segment_intersect_mask(a, b)
+            cur, n = q._compact(cur, mask.bool())
+        else:
+            cur, n = q._compact(cur, q.member_asc(cur, decode_packed(b)))
+    return cur.cpu().numpy()[: int(n)][::-1].astype(np.int64)
+
+
+def disjunctive_packed(pseg: PackedSegment,
+                       terms: Sequence[int]) -> np.ndarray:
+    """Descending GLOBAL docids holding any term, one frozen segment."""
+    lists = [pseg.docids_asc(t) for t in terms]
+    out = lists[0]
+    for more in lists[1:]:
+        out = np.union1d(out, more)
+    return out[::-1]
+
+
+def phrase_packed(pseg: PackedSegment, t1: int, t2: int) -> np.ndarray:
+    """Descending GLOBAL docids where ``t2`` occurs at position(t1)+1,
+    within one frozen segment."""
+    p1 = pseg.postings_asc(t1)
+    p2 = pseg.postings_asc(t2)
+    if p1.size == 0 or p2.size == 0:
+        return np.zeros(0, np.int64)
+    want = p1 + np.uint32(1)
+    pos = np.minimum(np.searchsorted(p2, want), p2.size - 1)
+    hit = p2[pos] == want
+    ids = np.unique(p1[hit] >> np.uint32(post.POS_BITS)).astype(np.int64)
+    return ids[::-1] + pseg.doc_base
+
+
+def _valid_prefix(desc, counts: np.ndarray, cap: Optional[int]):
+    """Host copy of the columns of ``desc`` that hold some row's answer:
+    results are padded to the stack's pow2 width (up to 2**23 lanes per
+    segment), so copying only ``max(counts)`` columns keeps the one
+    device-to-host copy of a batch proportional to its answers."""
+    width = int(counts.max()) if counts.size else 0
+    if cap is not None:
+        width = min(width, cap)
+    return desc[:, :width].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Unified engine: active pool + every frozen segment
+# ---------------------------------------------------------------------------
+# largest conjunctive `limit` routed through the early-exit top-k path
+_TOPK_LIMIT_MAX = 4096
+
+
+@dataclasses.dataclass
+class LifecycleStats:
+    docs_ingested: int = 0
+    rollovers: int = 0
+    compactions: int = 0
+    high_water_slots: int = 0
+    live_slots: int = 0
+    scored_blocks_skipped: int = 0
+    scored_blocks_live: int = 0
+    emergency_rollovers: int = 0
+    deferred_batches: int = 0
+    shed_batches: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionController:
+    """Graceful degradation under memory pressure: before each batch,
+    ``utilization >= rollover_at`` forces an emergency rollover (which
+    reclaims the active segment's slices before any pool can overflow),
+    and ``utilization >= shed_at`` still afterwards sheds the batch
+    (``ingest`` returns False).  ``min_segment_docs`` withholds the
+    emergency rollover while the active segment is smaller."""
+    rollover_at: float = 0.85
+    shed_at: float = 1.0
+    compact_k: Optional[int] = None
+    min_segment_docs: int = 0
+
+    def __post_init__(self):
+        if not (0.0 <= self.rollover_at <= self.shed_at):
+            raise ValueError(
+                f"need 0 <= rollover_at <= shed_at, got "
+                f"rollover_at={self.rollover_at} shed_at={self.shed_at}")
+        if self.min_segment_docs < 0:
+            raise ValueError(
+                f"need min_segment_docs >= 0, got {self.min_segment_docs}")
+
+
+class LifecycleEngine:
+    """Single-device streaming engine: ingest -> rollover -> reclaim,
+    with queries spanning the active pool and all frozen segments.
+
+    ``device`` holds every tensor ("cuda" by default; the CPU tests pass
+    "cpu", where each kernel's plain version runs).  The batched frozen
+    conjunction runs the CUDA kernel exactly when the engine is on a CUDA
+    device and ``use_kernel``.
+    """
+
+    def __init__(self, layout: PoolLayout, vocab_size: int,
+                 docs_per_segment: int, *, max_slices: int, max_len: int,
+                 max_query_len: int = 8, max_segments: int = 12,
+                 use_kernel: bool = True,
+                 bulk_ingest: bool = True,
+                 batched: bool = True,
+                 validate: bool = False,
+                 compaction: Optional[seg_mod.CompactionPolicy] = None,
+                 admission: Optional[AdmissionController] = None,
+                 device="cuda"):
+        if validate:
+            raise NotImplementedError(
+                "validate=True needs the invariant validators, a later "
+                "slice of the port (ROADMAP.md, Queue 1 item 10)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LifecycleEngine(device='cuda') needs a CUDA device; pass "
+                "device='cpu' to run the plain versions on the CPU")
+        self.layout = layout
+        self.vocab_size = vocab_size
+        self.max_slices = max_slices
+        self.max_len = max_len
+        self.max_query_len = max_query_len
+        self.use_kernel = use_kernel
+        self.batched = batched
+        self.validate = validate
+        self.segments = seg_mod.SegmentSet(
+            layout, vocab_size, docs_per_segment, max_segments=max_segments,
+            bulk_ingest=bulk_ingest, compaction=compaction,
+            device=self.device)
+        self.engine = q.make_engine(layout, max_slices, max_len,
+                                    max_query_len, use_kernel=use_kernel)
+        self._packed: List[PackedSegment] = []
+        self._qstack: Optional[qexec.FrozenStack] = None
+        self._batched_kernel = use_kernel and self.device.type == "cuda"
+        self.admission = admission
+        self.stats = LifecycleStats()
+
+    # -- ingest ----------------------------------------------------------
+    def ingest(self, docs) -> bool:
+        """Index one arrival batch (int32[batch, L] term ids, -1 padded);
+        segments roll over automatically when they fill.  Returns False
+        when the :class:`AdmissionController` shed the batch."""
+        if self.admission is not None and not self._admit():
+            self.stats.shed_batches += 1
+            return False
+        self.segments.ingest(docs)
+        prev = self.stats.rollovers
+        self._sync_frozen()
+        self.stats.docs_ingested += int(docs.shape[0])
+        if self.stats.rollovers != prev:
+            self._refresh_memory_stats()
+        return True
+
+    def _admit(self) -> bool:
+        adm = self.admission
+        util = slicepool.pool_utilization(self.layout,
+                                          self.segments.active.state)
+        if (util >= adm.rollover_at
+                and self.segments.active.next_docid
+                >= max(1, adm.min_segment_docs)):
+            self.segments.rollover()
+            if adm.compact_k is not None:
+                self.segments.compact(adm.compact_k)
+            self._sync_frozen()
+            self.stats.emergency_rollovers += 1
+            self.stats.deferred_batches += 1
+            self._refresh_memory_stats()
+            util = slicepool.pool_utilization(self.layout,
+                                              self.segments.active.state)
+        return util < adm.shed_at
+
+    def _refresh_memory_stats(self) -> None:
+        st = self.segments.active.state
+        self.stats.high_water_slots = slicepool.memory_high_water_slots(
+            self.layout, st)
+        self.stats.live_slots = slicepool.memory_slots_used(self.layout, st)
+
+    def validate_invariants(self) -> None:
+        raise NotImplementedError(
+            "the invariant validators are a later slice of the port "
+            "(ROADMAP.md, Queue 1 item 10)")
+
+    def compact(self, k: int):
+        """Merge the ``k`` oldest frozen segments and resync the packed
+        views; returns the merged segment or None (no-op)."""
+        merged = self.segments.compact(k)
+        self._sync_frozen()
+        return merged
+
+    def _sync_frozen(self) -> None:
+        """Mirror ``segments.frozen`` into packed query-side views; any
+        change to the list drops the cached ``FrozenStack``."""
+        by_id = {id(p.seg): p for p in self._packed}
+        fresh = [by_id.get(id(fz)) or PackedSegment(fz)
+                 for fz in self.segments.frozen]
+        if [id(p) for p in fresh] != [id(p) for p in self._packed]:
+            self._qstack = None
+        self._packed = fresh
+        self.stats.rollovers = self.segments.n_rollovers
+        self.stats.compactions = self.segments.n_compactions
+
+    def _frozen_stack(self) -> Optional[qexec.FrozenStack]:
+        if self._qstack is None and self._packed:
+            self._qstack = qexec.FrozenStack(self._packed,
+                                             device=self.device)
+        return self._qstack
+
+    def check_health(self) -> None:
+        self.segments.active.check_health()
+
+    @property
+    def doc_base(self) -> int:
+        return self.segments._doc_base
+
+    @property
+    def frozen_packed(self) -> List[PackedSegment]:
+        return list(self._packed)
+
+    def memory_slots_used(self) -> int:
+        return slicepool.memory_slots_used(self.layout,
+                                           self.segments.active.state)
+
+    def memory_high_water_slots(self) -> int:
+        return slicepool.memory_high_water_slots(
+            self.layout, self.segments.active.state)
+
+    # -- queries: batched qexec path (default) ---------------------------
+    def _base_u32(self) -> int:
+        base = self.doc_base
+        if base + self.segments.active.next_docid >= 0xFFFFFFFF:
+            raise OverflowError(
+                f"doc_base {base} exceeds the uint32 docid space; "
+                f"reshard or reset doc_base")
+        return base
+
+    def _stub_active(self, rows: int):
+        """An empty active part for ``frozen_only`` evaluation."""
+        return (torch.full((rows, 1), qexec.INVALID, dtype=torch.int64,
+                           device=self.device),
+                torch.zeros(rows, dtype=torch.int32, device=self.device))
+
+    def _tensor(self, x, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+
+    def _batch_eval(self, kind: str, queries: Sequence,
+                    limit: Optional[int],
+                    frozen_only: bool = False) -> List[np.ndarray]:
+        return self._batch_eval_async(kind, queries, limit,
+                                      frozen_only=frozen_only).wait()
+
+    def _batch_eval_async(self, kind: str, queries: Sequence,
+                          limit: Optional[int], *,
+                          frozen_only: bool = False) -> qexec.Pending:
+        """A whole query batch: one batched active evaluation, one frozen
+        stack evaluation; the host copy of the results is deferred to
+        ``wait()``."""
+        Q = len(queries)
+        if Q == 0:
+            return qexec.Pending((), lambda: [])
+        self._sync_frozen()
+        if (kind == "conjunctive" and limit is not None
+                and limit <= _TOPK_LIMIT_MAX):
+            return self._batch_topk_async(queries, limit,
+                                          frozen_only=frozen_only)
+        base = self._base_u32()
+        stack = self._frozen_stack()
+        if kind == "phrase":
+            Qb = qexec.bucket_pow2(Q)
+            t1 = np.zeros(Qb, np.int64)
+            t2 = np.zeros(Qb, np.int64)
+            t1[:Q] = [p[0] for p in queries]
+            t2[:Q] = [p[1] for p in queries]
+            live = self._tensor(np.arange(Qb) < Q, torch.int32)
+            ad, an = (self._stub_active(Qb) if frozen_only
+                      else self._active_batch(kind, t1, t2))
+            if stack is None:
+                desc, n = qexec.finalize(ad, an, live, base)
+            else:
+                p1, p2 = stack.gather_postings(t1, t2, n_live=Q)
+                desc, n = qexec.frozen_phrase_merge(
+                    ad, an, p1, p2, stack.doc_bases, live, base)
+        else:
+            terms, n_terms = qexec.pad_query_batch(queries,
+                                                   self.max_query_len)
+            # trim the term axis to the batch's pow2 bucket
+            tb = min(qexec.bucket_pow2(int(n_terms.max()), 1),
+                     self.max_query_len)
+            ad, an = (self._stub_active(terms.shape[0]) if frozen_only
+                      else self._active_batch(kind, terms, n_terms, tb))
+            nt = self._tensor(n_terms, torch.int32)
+            if stack is None:
+                desc, n = qexec.finalize(ad, an, nt, base)
+            else:
+                lists, _ = stack.gather(terms[:, :tb], n_terms)
+                desc, n = qexec.frozen_merge(
+                    ad, an, lists, nt, base, kind=kind, nt_slots=tb,
+                    kernel=self._batched_kernel)
+
+        def finish(N):
+            D = _valid_prefix(desc, N, limit)
+            out = [D[i, : int(N[i])].astype(np.int64) for i in range(Q)]
+            return out if limit is None else [o[:limit] for o in out]
+
+        return qexec.Pending((n,), finish)
+
+    def _batch_topk(self, queries: Sequence, k: int,
+                    frozen_only: bool = False) -> List[np.ndarray]:
+        return self._batch_topk_async(queries, k,
+                                      frozen_only=frozen_only).wait()
+
+    def _batch_topk_async(self, queries: Sequence, k: int, *,
+                          frozen_only: bool = False) -> qexec.Pending:
+        Q = len(queries)
+        if Q == 0:
+            return qexec.Pending((), lambda: [])
+        self._sync_frozen()
+        k = int(k)
+        if k <= 0:
+            empty = [np.zeros(0, np.int64) for _ in range(Q)]
+            return qexec.Pending((), lambda: empty)
+        terms, n_terms = qexec.pad_query_batch(queries, self.max_query_len)
+        tb = min(qexec.bucket_pow2(int(n_terms.max()), 1),
+                 self.max_query_len)
+        base = self._base_u32()
+        k_pad = qexec.bucket_pow2(k, floor=8)
+        nt = self._tensor(n_terms, torch.int32)
+        ad, an = (self._stub_active(terms.shape[0]) if frozen_only
+                  else self._active_topk_batch(terms, n_terms, k, k_pad,
+                                               tb))
+        stack = self._frozen_stack()
+        if stack is None:
+            desc, n = qexec.finalize(ad, an, nt, base)
+        else:
+            lists, lasts = stack.gather(terms[:, :tb], n_terms)
+            desc, n = qexec.frozen_topk(ad, an, lists, nt, base, lasts, k,
+                                        nt_slots=tb, k_pad=k_pad)
+
+        def finish(N):
+            D = _valid_prefix(desc, N, k)
+            return [D[i, : min(int(N[i]), k)].astype(np.int64)
+                    for i in range(Q)]
+
+        return qexec.Pending((n,), finish)
+
+    def conjunctive_batch(self, queries: Sequence[Sequence[int]],
+                          limit: Optional[int] = None,
+                          frozen_only: bool = False) -> List[np.ndarray]:
+        """Batched :meth:`conjunctive`: one list of GLOBAL descending
+        docids per query."""
+        if not self.batched:
+            return [self._unified("conjunctive", t, limit, frozen_only)
+                    for t in queries]
+        return self._batch_eval("conjunctive", queries, limit, frozen_only)
+
+    def disjunctive_batch(self, queries: Sequence[Sequence[int]],
+                          limit: Optional[int] = None,
+                          frozen_only: bool = False) -> List[np.ndarray]:
+        if not self.batched:
+            return [self._unified("disjunctive", t, limit, frozen_only)
+                    for t in queries]
+        return self._batch_eval("disjunctive", queries, limit, frozen_only)
+
+    def phrase_batch(self, pairs: Sequence[Sequence[int]],
+                     limit: Optional[int] = None,
+                     frozen_only: bool = False) -> List[np.ndarray]:
+        if not self.batched:
+            return [self._unified("phrase", p, limit, frozen_only)
+                    for p in pairs]
+        return self._batch_eval("phrase", pairs, limit, frozen_only)
+
+    def topk_conjunctive(self, terms: Sequence[int], k: int,
+                         frozen_only: bool = False) -> np.ndarray:
+        """The newest ``k`` docs holding every term — bit-identical to
+        ``conjunctive(terms)[:k]``."""
+        return self.topk_conjunctive_batch([terms], k, frozen_only)[0]
+
+    def topk_conjunctive_batch(self, queries: Sequence[Sequence[int]],
+                               k: int,
+                               frozen_only: bool = False
+                               ) -> List[np.ndarray]:
+        if not self.batched:
+            return [self._unified("conjunctive", t, int(k), frozen_only)
+                    for t in queries]
+        return self._batch_topk(queries, k, frozen_only)
+
+    def dispatch(self, kind: str, queries: Sequence, *,
+                 k: Optional[int] = None, limit: Optional[int] = None,
+                 frozen_only: bool = False) -> qexec.Pending:
+        """Dispatch a query batch WITHOUT waiting for its results; the
+        returned :class:`qexec.Pending`'s ``wait()`` yields what the
+        synchronous method returns.  ``kind`` is ``conjunctive`` /
+        ``disjunctive`` / ``phrase`` (optionally ``limit``-capped) or
+        ``topk`` (needs ``k``)."""
+        if kind in ("scored", "scored_full"):
+            raise NotImplementedError(_SCORED)
+        if kind == "topk" and k is None:
+            raise ValueError(f"kind {kind!r} needs k")
+        if not self.batched:
+            if kind == "topk":
+                res = [self._unified("conjunctive", t, int(k), frozen_only)
+                       for t in queries]
+            elif kind in ("conjunctive", "disjunctive", "phrase"):
+                res = [self._unified(kind, t, limit, frozen_only)
+                       for t in queries]
+            else:
+                raise ValueError(f"unknown query kind {kind!r}")
+            return qexec.Pending((), lambda: res)
+        if kind == "topk":
+            return self._batch_topk_async(queries, int(k),
+                                          frozen_only=frozen_only)
+        if kind in ("conjunctive", "disjunctive", "phrase"):
+            return self._batch_eval_async(kind, queries, limit,
+                                          frozen_only=frozen_only)
+        raise ValueError(f"unknown query kind {kind!r}")
+
+    # -- scored retrieval: a later slice ---------------------------------
+    def scored_topk(self, terms, k):
+        raise NotImplementedError(_SCORED)
+
+    def scored_topk_batch(self, queries, k, frozen_only=False):
+        raise NotImplementedError(_SCORED)
+
+    def scored_full(self, terms, k=None):
+        raise NotImplementedError(_SCORED)
+
+    def scored_full_batch(self, queries, k=None, frozen_only=False):
+        raise NotImplementedError(_SCORED)
+
+    # -- queries: per-query host-loop oracle (batched=False) -------------
+    def _unified(self, kind: str, terms: Sequence[int],
+                 limit: Optional[int],
+                 frozen_only: bool = False) -> np.ndarray:
+        self._sync_frozen()
+        parts = [np.zeros(0, np.int64) if frozen_only
+                 else self._active_desc(kind, terms)]
+        total = len(parts[0])
+        for pseg in reversed(self._packed):   # newest frozen first
+            # segments own disjoint descending docid ranges: once newer
+            # segments fill the limit, older ones cannot contribute.
+            if limit is not None and total >= limit:
+                break
+            if kind == "conjunctive":
+                parts.append(conjunctive_packed(
+                    pseg, terms, use_kernel=self.use_kernel,
+                    device=self.device))
+            elif kind == "disjunctive":
+                parts.append(disjunctive_packed(pseg, terms))
+            else:
+                parts.append(phrase_packed(pseg, terms[0], terms[1]))
+            total += len(parts[-1])
+        out = np.concatenate(parts)
+        return out[:limit] if limit is not None else out
+
+    def conjunctive(self, terms: Sequence[int],
+                    limit: Optional[int] = None,
+                    frozen_only: bool = False) -> np.ndarray:
+        """GLOBAL docids holding every term, newest first, across the
+        active pool and all frozen segments."""
+        if self.batched:
+            return self._batch_eval("conjunctive", [tuple(terms)],
+                                    limit, frozen_only)[0]
+        return self._unified("conjunctive", terms, limit, frozen_only)
+
+    def disjunctive(self, terms: Sequence[int],
+                    limit: Optional[int] = None,
+                    frozen_only: bool = False) -> np.ndarray:
+        if self.batched:
+            return self._batch_eval("disjunctive", [tuple(terms)],
+                                    limit, frozen_only)[0]
+        return self._unified("disjunctive", terms, limit, frozen_only)
+
+    def phrase(self, t1: int, t2: int,
+               limit: Optional[int] = None,
+               frozen_only: bool = False) -> np.ndarray:
+        if self.batched:
+            return self._batch_eval("phrase", [(t1, t2)], limit,
+                                    frozen_only)[0]
+        return self._unified("phrase", (t1, t2), limit, frozen_only)
+
+    # -- the active part -------------------------------------------------
+    def _active_batch(self, kind: str, *args):
+        state = self.segments.active.state
+        if kind == "phrase":
+            t1, t2 = args
+            fn = qexec.make_active_fn(self.layout, self.max_slices,
+                                      self.max_len, self.max_query_len,
+                                      kind)
+            return fn(state, self._tensor(t1), self._tensor(t2))
+        terms, n_terms, tb = args
+        fn = qexec.make_active_fn(self.layout, self.max_slices,
+                                  self.max_len, tb, kind)
+        return fn(state, self._tensor(terms[:, :tb]),
+                  self._tensor(n_terms, torch.int32))
+
+    def _active_topk_batch(self, terms, n_terms, k: int, k_pad: int,
+                           tb: int):
+        fn = qexec.make_active_topk_fn(self.layout, self.max_slices,
+                                       self.max_len, tb, k_pad)
+        return fn(self.segments.active.state, self._tensor(terms[:, :tb]),
+                  self._tensor(n_terms, torch.int32), min(k, k_pad))
+
+    def _active_desc(self, kind: str, terms: Sequence[int]) -> np.ndarray:
+        state = self.segments.active.state
+        if kind == "phrase":
+            desc, n = self.engine.phrase(state, self._tensor(terms[0]),
+                                         self._tensor(terms[1]))
+        else:
+            padded = np.zeros(self.max_query_len, np.int64)
+            padded[: len(terms)] = terms
+            desc, n = getattr(self.engine, kind)(
+                state, self._tensor(padded),
+                self._tensor(len(terms), torch.int32))
+        return (desc.cpu().numpy()[: int(n)].astype(np.int64)
+                + self.doc_base)
+
+
+class ShardedLifecycleEngine:
+    """The document-sharded engine is a later slice of the port."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ShardedLifecycleEngine is the document-sharding slice "
+            "(ROADMAP.md, Queue 1 item 11), not yet ported")

@@ -1,0 +1,80 @@
+"""Device routing for the port's kernels.
+
+Each call goes by the device of its tensors: a CPU tensor runs the plain
+torch version (``kernels.ref``), a CUDA tensor runs the hand-written
+kernel, and any other device raises.  There is no fallback from the
+kernel to the plain version: a CUDA call whose kernel cannot build or
+launch raises.  Every kernel wrapper counts its launches in a plain
+integer attribute ``launches`` (:func:`launch_counts`).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import bulk_append as _ba
+from repro_torch.kernels import postings_intersect as _pi
+from repro_torch.kernels import ref
+from repro_torch.kernels import segment_intersect as _si
+
+KERNELS = {
+    "bulk_append": _ba.bulk_append,
+    "segment_intersect_mask_batched": _si.segment_intersect_mask_batched,
+    "intersect_mask": _pi.intersect_mask,
+    "segment_intersect_mask": _si.segment_intersect_mask,
+}
+
+
+def _on_cuda(name: str, t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def intersect_mask(a, b):
+    """Membership mask of ascending INVALID-padded ``a`` in ``b``."""
+    if _on_cuda("intersect_mask", a):
+        return _pi.intersect_mask(a.contiguous(), b.contiguous())
+    return ref.intersect_mask_ref(a, b)
+
+
+def segment_intersect_mask(a, b):
+    """Fused gap-decode + intersection of two torch-leaved PackedLists."""
+    if _on_cuda("segment_intersect_mask", a.firsts):
+        return _si.segment_intersect_mask(a, b)
+    return ref.segment_intersect_mask_ref(a, b)
+
+
+def segment_intersect_mask_batched(a, b):
+    """Row-wise masks of a whole (query, segment) batch of StackedLists."""
+    if _on_cuda("segment_intersect_mask_batched", a.firsts):
+        return _si.segment_intersect_mask_batched(a, b)
+    return ref.segment_intersect_mask_batched_ref(a, b)
+
+
+def bulk_append(heap, tail, freq, post_addr, post_val, ptr_addr, ptr_val,
+                term_idx, term_tail, term_freq):
+    """Fused scatter-append of one ingest batch into (heap, tail, freq),
+    in place."""
+    if _on_cuda("bulk_append", heap):
+        return _ba.bulk_append(heap, tail, freq, post_addr, post_val,
+                               ptr_addr, ptr_val, term_idx, term_tail,
+                               term_freq)
+    return ref.bulk_append_ref(heap, tail, freq, post_addr, post_val,
+                               ptr_addr, ptr_val, term_idx, term_tail,
+                               term_freq)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["intersect_mask", "segment_intersect_mask",
+           "segment_intersect_mask_batched", "bulk_append", "ref",
+           "launch_counts", "reset_launch_counts", "KERNELS"]

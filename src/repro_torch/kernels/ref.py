@@ -1,0 +1,67 @@
+"""Plain torch versions of the port's CUDA kernels.
+
+Each mirrors its reference oracle in the JAX package's
+``kernels/ref.py``.  The CPU path runs them (``kernels.ops`` routes a CPU
+tensor here), and the chip check holds every kernel against them on the
+card.  uint32 values travel as int64 holding the value.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.segment_intersect import (decode_packed,
+                                                   decode_stacked)
+
+INVALID = 0xFFFFFFFF
+
+
+def intersect_mask_ref(a, b, invalid: int = INVALID):
+    """Membership mask: 1 where a[..., i] (valid) appears in b[...]. Both
+    ascending, padded with ``invalid`` at the end; equal leading dims."""
+    pos = torch.searchsorted(b.contiguous(), a.contiguous())
+    pos = pos.clamp_(max=b.shape[-1] - 1)
+    hit = (torch.gather(b, -1, pos) == a) & (a != invalid)
+    return hit.to(torch.int32)
+
+
+def bulk_append_ref(heap, tail, freq, post_addr, post_val, ptr_addr,
+                    ptr_val, term_idx, term_tail, term_freq):
+    """The fused scatter-append as four plain scatters, in place.  Skip
+    lanes carry out-of-range addresses, which torch's indexing would
+    reject where the reference's ``mode="drop"`` scatter skips them, so
+    they are dropped first.  Live addresses are unique by construction,
+    so the order of the writes is immaterial."""
+    for target, addr, val in ((heap, post_addr, post_val),
+                              (heap, ptr_addr, ptr_val),
+                              (tail, term_idx, term_tail),
+                              (freq, term_idx, term_freq)):
+        live = (addr >= 0) & (addr < target.shape[0])
+        target[addr[live]] = val[live].to(target.dtype)
+    return heap, tail, freq
+
+
+def segment_intersect_mask_ref(a_packed, b_packed):
+    """Decode both PackedLists with the all-blocks decoder, then plain
+    membership."""
+    a_ids = decode_packed(a_packed)
+    if a_ids.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=a_ids.device)
+    b_ids = decode_packed(b_packed, a_ids.device)
+    if b_ids.shape[0] == 0:
+        return torch.zeros(a_ids.shape, dtype=torch.int32,
+                           device=a_ids.device)
+    return intersect_mask_ref(a_ids, b_ids)
+
+
+def segment_intersect_mask_batched_ref(a_stacked, b_stacked):
+    """Batched all-blocks decode of both ``[N, ...]`` stacks, then
+    row-wise membership."""
+    a_ids = decode_stacked(a_stacked)           # [N, NBa * SEG_BLOCK]
+    if a_ids.shape[-1] == 0 or a_ids.shape[0] == 0:
+        return torch.zeros(a_ids.shape, dtype=torch.int32,
+                           device=a_ids.device)
+    b_ids = decode_stacked(b_stacked)
+    if b_ids.shape[-1] == 0:
+        return torch.zeros(a_ids.shape, dtype=torch.int32,
+                           device=a_ids.device)
+    return intersect_mask_ref(a_ids, b_ids)

@@ -48,3 +48,9 @@ def indexed_segment(small_layout, small_corpus):
 def max_slices_for(z, freqs):
     fmax = max(int(np.max(freqs)), 1)
     return int(analytical.slices_needed(z, fmax)) + 1
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one); run on "
+        "the card with `python -m pytest -m cuda tests/test_torch_*.py`")

@@ -1,0 +1,111 @@
+"""Guards on the port's boundaries.
+
+* No module of ``src/repro_torch`` — nor ``chip_smoke.py`` — imports
+  ``jax`` or the reference package ``repro``: the port stands alone.
+* The port's entry points run on the card by default and never drop to
+  the CPU by themselves: asked for ``device="cuda"`` on a machine
+  without CUDA they raise.
+* The card-only check of each kernel against its plain version is
+  marked ``cuda`` and skips without a card.
+"""
+import ast
+import inspect
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import pointers as tp
+from repro_torch.core import slicepool as tsp
+from repro_torch.core.index import ActiveSegment
+from repro_torch.core.lifecycle import LifecycleEngine
+from repro_torch.core.segments import SegmentSet
+from repro_torch.kernels.segment_intersect import decode_packed
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_guard_sees_every_port_module():
+    names = {p.name for p in PORT_FILES}
+    for must in ("lifecycle.py", "slicepool.py", "qexec.py", "ops.py",
+                 "segment_intersect.py", "chip_smoke.py"):
+        assert must in names
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (LifecycleEngine.__init__, ActiveSegment, SegmentSet,
+               tsp.init_state, tsp.make_bulk_ingest_fn, decode_packed):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    """On a CUDA-less machine a CUDA engine raises instead of running on
+    the CPU (and so do the lower entry points)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    layout = tp.PoolLayout(z=(1, 4), slices_per_pool=(8, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LifecycleEngine(layout, 4, 10, max_slices=4, max_len=8)
+    if not torch.backends.cuda.is_built():
+        with pytest.raises((AssertionError, RuntimeError)):
+            ActiveSegment(layout, 4)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    """Each CUDA kernel against its plain version on small random
+    inputs (bit-identical).  Runs where a card is present."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_intersect import (pack_docids,
+                                                       stack_packed)
+    rng = np.random.default_rng(0)
+    dev = "cuda"
+    ids = [np.unique(rng.integers(0, s, n)).astype(np.uint32)
+           for n, s in ((0, 10), (129, 300), (800, 70000), (500, 1 << 30))]
+    a = stack_packed([pack_docids(x) for x in ids]).to(dev)
+    b = stack_packed([pack_docids(x) for x in ids[::-1]]).to(dev)
+    assert torch.equal(ops.segment_intersect_mask_batched(a, b),
+                       ref.segment_intersect_mask_batched_ref(a, b))
+    p, q = pack_docids(ids[2]).to(dev), pack_docids(ids[1]).to(dev)
+    assert torch.equal(ops.segment_intersect_mask(p, q),
+                       ref.segment_intersect_mask_ref(p, q))
+    x = torch.full((2, 512), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    y = x.clone()
+    x[:, :300] = torch.arange(0, 600, 2)
+    y[:, :400] = torch.arange(0, 1200, 3)
+    assert torch.equal(ops.intersect_mask(x, y), ref.intersect_mask_ref(x, y))
+    layout = tp.PoolLayout(z=(1, 4, 7, 11), slices_per_pool=(64, 32, 16, 8))
+    st = tsp.init_state(layout, 8, dev)
+    ingest = tsp.make_bulk_ingest_fn(layout, 8, dev)
+    terms = torch.as_tensor(rng.integers(0, 8, 300), device=dev)
+    scat, _, _, _ = ingest.plan(st, terms, torch.arange(300, device=dev),
+                                torch.zeros_like(terms),
+                                torch.ones(300, dtype=torch.bool,
+                                           device=dev))
+    k = [t.clone() for t in (st.heap, st.tail, st.freq)]
+    r = [t.clone() for t in (st.heap, st.tail, st.freq)]
+    ops.bulk_append(*k, *scat)
+    ref.bulk_append_ref(*r, *scat)
+    for g, w in zip(k, r):
+        assert torch.equal(g, w)
