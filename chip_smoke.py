@@ -6,20 +6,27 @@ Phases, in order (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi``), torch/CUDA versions, the kernel build;
   2. every CUDA kernel against its plain torch version on the card, at
-     the main path's shapes, bit for bit — plus its time, the plain
-     version's, one library call's and the bound the card's memory rate
-     sets;
+     the main path's shapes, bit for bit (the scored kernel at three
+     thresholds: none, about half the blocks skipped, all skipped) —
+     plus its time, the plain version's, one library call's and the
+     bound the card's memory rate sets;
   3. the main path at full width: a Zipf(1.0) tweet stream over a 2**20
      term vocabulary into Earlybird's 2**23-tweet segment under the
      paper's production pools Z^g = <1, 4, 7, 11>, in 4096-tweet arrival
      batches; one rollover (freeze + slice reclamation), 2**20 more
      tweets into the recycled pools, then a 64-query AOL-like batch
-     through the batched conjunctive / disjunctive / phrase / top-k
-     routes, held against a numpy brute force over the stream;
-  4. compaction and the sequential oracle route at a smaller depth:
-     2**16-tweet segments, >= 3 rollovers with CompactionPolicy(fanout=2),
-     every query kind batched and ``batched=False`` (the per-segment
-     kernels), which must agree bit for bit and with the brute force.
+     through the batched conjunctive / disjunctive / phrase / top-k /
+     scored top-k (k = 10) / exhaustive scored routes, held against a
+     numpy brute force over the stream (score = sum of min(tf, 255),
+     ranked by score desc, docid desc);
+  4. compaction, the sequential oracle route and durability at a
+     smaller depth: 2**16-tweet segments, >= 3 rollovers with
+     CompactionPolicy(fanout=2), every query kind batched and
+     ``batched=False`` (the per-segment kernels), which must agree bit
+     for bit and with the brute force; every batch journaled and a
+     snapshot taken mid-stream, then the engine dropped and recovered
+     on the card: equal fingerprint and answers, and a truncated
+     archive must raise ``CorruptSnapshotError``.
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -32,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,13 +50,15 @@ sys.path.insert(0, _SRC)
 
 from repro_torch.core import analytical  # noqa: E402
 from repro_torch.core import pointers  # noqa: E402
+from repro_torch.core import recovery  # noqa: E402
 from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
 from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
 from repro_torch.kernels.segment_intersect import (  # noqa: E402
-    SEG_BLOCK, decode_packed, decode_stacked, pack_docids, stack_packed)
+    SCORE_MAX, SEG_BLOCK, attach_scores, decode_packed, decode_scores,
+    decode_stacked, pack_docids, stack_packed, stack_scored)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BATCH = 4096                 # arrival batch: under a second of 2013 traffic
@@ -59,6 +69,8 @@ REPLACES = {
         "src/repro/kernels/segment_intersect.py:496",
     "intersect_mask": "src/repro/kernels/postings_intersect.py:102",
     "segment_intersect_mask": "src/repro/kernels/segment_intersect.py:366",
+    "scored_intersect_batched":
+        "src/repro/kernels/segment_intersect.py:753",
 }
 SOURCES = {
     "bulk_append": "src/repro_torch/csrc/bulk_append.cu",
@@ -66,7 +78,9 @@ SOURCES = {
         "src/repro_torch/csrc/segment_intersect.cu",
     "intersect_mask": "src/repro_torch/csrc/postings_intersect.cu",
     "segment_intersect_mask": "src/repro_torch/csrc/segment_intersect.cu",
+    "scored_intersect_batched": "src/repro_torch/csrc/scored_intersect.cu",
 }
+SCORED_K = 10                # the scored top-k route's k
 
 
 def log(msg: str) -> None:
@@ -141,9 +155,30 @@ class BruteForce:
         self.lists = {int(t): (rows[cut[t]: cut[t + 1]].astype(np.int64),
                                cols[cut[t]: cut[t + 1]].astype(np.int64))
                       for t in set(terms)}
+        self._tf = {}
 
     def docs_of(self, t: int) -> np.ndarray:
-        return np.unique(self.lists[int(t)][0])
+        return self.tf_of(t)[0]
+
+    def tf_of(self, t: int):
+        """(ascending docs, term frequency in each) of one term."""
+        t = int(t)
+        if t not in self._tf:
+            self._tf[t] = np.unique(self.lists[t][0], return_counts=True)
+        return self._tf[t]
+
+    def scored(self, terms):
+        """Docs holding every term, ranked by sum of min(tf, 255) desc,
+        then docid desc: (docs, scores)."""
+        its = [self.tf_of(t) for t in terms]
+        ids = its[0][0]
+        for more, _ in its[1:]:
+            ids = np.intersect1d(ids, more)
+        sc = np.zeros(ids.size, np.int64)
+        for uids, tf in its:
+            sc += np.minimum(tf[np.searchsorted(uids, ids)], SCORE_MAX)
+        order = np.lexsort((-ids, -sc))
+        return ids[order], sc[order]
 
     def conjunctive(self, terms) -> np.ndarray:
         out = self.docs_of(terms[0])
@@ -166,11 +201,17 @@ class BruteForce:
 
 
 def check_answers(kind: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{kind}: {len(got)} answers for "
+                             f"{len(want)} queries")
     for i, (g, w) in enumerate(zip(got, want)):
-        if not np.array_equal(g, w):
-            raise AssertionError(
-                f"{kind} query {i}: engine returned {len(g)} docs, brute "
-                f"force {len(w)}")
+        # scored answers are (docs, scores) pairs
+        pairs = zip(g, w) if isinstance(w, tuple) else [(g, w)]
+        for gx, wx in pairs:
+            if not np.array_equal(gx, wx):
+                raise AssertionError(
+                    f"{kind} query {i}: engine returned {len(gx)} "
+                    f"entries, brute force {len(wx)}")
 
 
 def query_batch(docs, vocab: int, n: int, seed: int):
@@ -195,9 +236,10 @@ def _lists(rng, n_docs: int, densities):
     return out
 
 
-def _touched_bytes(a_ids, b):
+def _touched_bytes(a_ids, b, extra: int = 0):
     """Bytes of the distinct b-blocks some valid a-lane can match (the
-    kernel's data-dependent reads: block entry + 32*bw int64 words)."""
+    kernel's data-dependent reads: block entry + 32*bw int64 words, plus
+    ``extra`` bytes per block)."""
     rows, nb = b.firsts.shape
     valid = a_ids != 0xFFFFFFFF
     j = torch.searchsorted(b.firsts.contiguous(), a_ids.contiguous(),
@@ -207,7 +249,7 @@ def _touched_bytes(a_ids, b):
     key = torch.unique((torch.arange(rows, device=a_ids.device)[:, None]
                         * nb + j)[ok])
     bw = b.bws.reshape(-1)[key].long()
-    return int((16 + 32 * bw * 8).sum())
+    return int((16 + 32 * bw * 8 + extra).sum())
 
 
 def _list_bytes(bws, ns) -> int:
@@ -217,6 +259,34 @@ def _list_bytes(bws, ns) -> int:
     real = (torch.arange(bws.shape[-1], device=bws.device)[None, :]
             < nblk[:, None])
     return int(((16 + 32 * bws.long() * 8) * real).sum())
+
+
+def _scored_bytes(a, b, a_ids, live_blk) -> int:
+    """Bytes the scored kernel must move: per real a-block its block
+    entry and bmax (20 bytes); per live a-block its 32*bw payload and 32
+    score words (int64 each); per b-block a live lane can match, its
+    block entry, payload and score words; the int32 output."""
+    nb = a.ids.firsts.shape[1]
+    nblk = (a.ids.ns.long() + SEG_BLOCK - 1) // SEG_BLOCK
+    real = torch.arange(nb, device=a_ids.device)[None, :] < nblk[:, None]
+    live = real & live_blk
+    a_live = torch.where(live.repeat_interleave(SEG_BLOCK, dim=1), a_ids,
+                         torch.full_like(a_ids, 0xFFFFFFFF))
+    per_live = (32 * a.ids.bws.long() + 32) * 8
+    return (int(20 * real.sum()) + int((per_live * live).sum())
+            + _touched_bytes(a_live, b.ids, extra=32 * 8)
+            + a_ids.numel() * 4)
+
+
+def _split_threshold(bound: np.ndarray, n_real: int) -> int:
+    """The threshold that skips the share of a row's real blocks closest
+    to one half (a block survives when its bound exceeds it)."""
+    real = bound[:n_real]
+    if real.size == 0:
+        return -1
+    cands = np.unique(real)
+    skip = np.array([(real <= c).mean() for c in cands])
+    return int(cands[np.argmin(np.abs(skip - 0.5))])
 
 
 def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
@@ -324,6 +394,70 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         shape=f"a {pa[0].n} docids in {pa[0].n_blocks} blocks, b "
               f"{pb[2].n} in {pb[2].n_blocks}")
 
+    # -- scored_intersect_batched: the same rows with tf impacts --------
+    # impacts min(tf, 255) drawn from the stream's head term's per-tweet
+    # tf distribution, so block maxima differ and a threshold can split
+    first = docs[: 1 << 20]
+    head = int(np.bincount(first[first >= 0]).argmax())
+    tfs = (first == head).sum(1)
+    tfs = tfs[tfs > 0]
+
+    def impacts(n):
+        return np.minimum(rng.choice(tfs, n), SCORE_MAX).astype(np.int32)
+    sca = stack_scored([attach_scores(p, impacts(p.n)) for p in pa]).to(dev)
+    scb = stack_scored([attach_scores(p, impacts(p.n)) for p in pb]).to(dev)
+    rows_n = sca.bmax.shape[0]
+    rest = torch.as_tensor(rng.integers(0, 8, rows_n), dtype=torch.int32,
+                           device=dev)
+    bound = (sca.bmax.long() + rest.long()[:, None]).cpu().numpy()
+    nreal = (-(-sca.ids.ns.cpu().numpy() // SEG_BLOCK)).astype(np.int64)
+    ths = {"none": np.full(rows_n, -1),
+           "half": np.array([_split_threshold(bound[r], nreal[r])
+                             for r in range(rows_n)]),
+           "all": bound.max(1) + 1}
+    err, skipped, runs = 0, {}, {}
+    for name, th in ths.items():
+        th = torch.as_tensor(th, dtype=torch.int32, device=dev)
+        got = ops.scored_intersect_batched(sca, scb, rest, th)
+        want = ref.scored_intersect_batched_ref(sca, scb, rest, th)
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"scored_intersect_batched/{name}",
+                                     got, want))
+        live_blk = torch.as_tensor(bound, device=dev) > th.long()[:, None]
+        skipped[name] = float(1 - (live_blk.cpu().numpy()[
+            np.arange(bound.shape[1])[None, :] < nreal[:, None]]).mean())
+        runs[name] = (th, live_blk, int((got > 0).sum()))
+    th0, live0, hits0 = runs["none"]
+    if not 0.2 <= skipped["half"] <= 0.8 or skipped["all"] != 1.0:
+        raise AssertionError(f"scored thresholds skip {skipped}")
+    a_ids, b_ids = decode_stacked(sca.ids), decode_stacked(scb.ids)
+    a_sc, b_sc = decode_scores(sca.swords), decode_scores(scb.swords)
+
+    def library():
+        pos = torch.searchsorted(b_ids, a_ids).clamp_(max=b_ids.shape[1] - 1)
+        hit = torch.gather(b_ids, 1, pos) == a_ids
+        return torch.where(hit, a_sc + torch.gather(b_sc, 1, pos), 0)
+    th_half = runs["half"][0]
+    ms_half = cuda_ms(lambda: ops.scored_intersect_batched(sca, scb, rest,
+                                                           th_half))
+    rows["scored_intersect_batched"] = dict(
+        ms=cuda_ms(lambda: ops.scored_intersect_batched(sca, scb, rest,
+                                                        th0)),
+        ms_half=ms_half,
+        plain_ms=cuda_ms(lambda: ref.scored_intersect_batched_ref(
+            sca, scb, rest, th0)),
+        library_ms=cuda_ms(library),
+        bytes=_scored_bytes(sca, scb, a_ids, live0), max_abs_err=err,
+        hits=hits0,
+        shape=f"N={rows_n} rows, NB={sca.ids.n_blocks} blocks, the "
+              f"segment rows with impacts from term {head}'s tf "
+              f"(max {int(tfs.max())}); th=-1 (main path); blocks "
+              f"skipped at the three thresholds "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in skipped.items())}; "
+              f"kernel at the half threshold {ms_half:.4f} ms")
+    del sca, scb, a_ids, b_ids, a_sc, b_sc, runs
+    torch.cuda.empty_cache()
+
     # -- intersect_mask: two active lists at the engine's max_len ------
     max_len = 1 << (seg_docs - 1).bit_length()
     act = []
@@ -382,22 +516,33 @@ def size_layout(docs: np.ndarray, vocab: int, seg_docs: int,
     return pointers.production_layout(spp), need, fmax
 
 
-def run_queries(eng, queries, pairs, q_rows: int):
-    out = {}
-    for kind, batch, call in (
-            ("conjunctive", queries, eng.conjunctive_batch),
+def query_calls(eng, queries, pairs):
+    """(kind, queries, batched call) of every query kind the engine
+    serves."""
+    return (("conjunctive", queries, eng.conjunctive_batch),
             ("disjunctive", queries, eng.disjunctive_batch),
             ("phrase", pairs, eng.phrase_batch),
             ("topk", queries,
-             lambda qs: eng.topk_conjunctive_batch(qs, 10))):
+             lambda qs: eng.topk_conjunctive_batch(qs, 10)),
+            ("scored", queries,
+             lambda qs: eng.scored_topk_batch(qs, SCORED_K)),
+            ("scored_full", queries, eng.scored_full_batch))
+
+
+def run_queries(eng, queries, pairs, q_rows: int):
+    """Every kind in batches of ``q_rows``: {kind: (answers, ms per
+    batch, peak device bytes while the kind ran)}."""
+    out = {}
+    for kind, batch, call in query_calls(eng, queries, pairs):
         res, times = [], []
+        torch.cuda.reset_peak_memory_stats()
         for s in range(0, len(batch), q_rows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res += call(batch[s: s + q_rows])
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        out[kind] = (res, times)
+        out[kind] = (res, times, torch.cuda.max_memory_allocated())
     return out
 
 
@@ -410,11 +555,7 @@ def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
     from torch.profiler import ProfilerActivity, profile
     calls = [("ingest", lambda: eng.ingest(docs))] + [
         (kind, lambda c=call, b=batch: c(b[:q_rows])) for kind, batch, call
-        in (("conjunctive", queries, eng.conjunctive_batch),
-            ("disjunctive", queries, eng.disjunctive_batch),
-            ("phrase", pairs, eng.phrase_batch),
-            ("topk", queries,
-             lambda qs: eng.topk_conjunctive_batch(qs, 10)))]
+        in query_calls(eng, queries, pairs)]
     for name, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -440,10 +581,13 @@ def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
 
 def oracle_answers(bf: BruteForce, queries, pairs):
     conj = [bf.conjunctive(q) for q in queries]
+    scored = [bf.scored(q) for q in queries]
     return {"conjunctive": conj,
             "disjunctive": [bf.disjunctive(q) for q in queries],
             "phrase": [bf.phrase(*p) for p in pairs],
-            "topk": [c[:10] for c in conj]}
+            "topk": [c[:10] for c in conj],
+            "scored": [(i[:SCORED_K], s[:SCORED_K]) for i, s in scored],
+            "scored_full": scored}
 
 
 def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
@@ -486,31 +630,42 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         f"{extra_docs} more docs (bounded by reclamation); live "
         f"{eng.memory_slots_used()}")
     queries, pairs = query_batch(docs[:total], vocab, n_queries, seed=1)
+    ingest_peak = torch.cuda.max_memory_allocated()
     res = run_queries(eng, queries, pairs, q_rows)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for kind, (_, times) in res.items():
+    peak = max([ingest_peak] + [r[2] for r in res.values()])
+    for kind, (_, times, kpeak) in res.items():
         log(f"query {kind}: {len(times)} batches of {q_rows}: "
-            f"{', '.join(f'{t:.1f}' for t in times)} ms")
+            f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
+            f"{np.median(times):.1f} ms; peak device memory "
+            f"{kpeak / 2**30:.2f} GiB")
+    skip = (eng.stats.scored_blocks_skipped, eng.stats.scored_blocks_live)
+    log(f"scored top-k (k={SCORED_K}): {skip[0]} of {skip[1]} live "
+        f"driving-term blocks skipped ({skip[0] / max(skip[1], 1):.3f})")
     log(f"main-path launches: {json.dumps(counts)}; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    for k in ("bulk_append", "segment_intersect_mask_batched"):
+        f"{peak / 2**30:.2f} GiB ({peak} bytes; ingest "
+        f"{ingest_peak / 2**30:.2f} GiB)")
+    for k in ("bulk_append", "segment_intersect_mask_batched",
+              "scored_intersect_batched"):
         if counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
     profile_paths(eng, docs[total: total + BATCH], queries, pairs, q_rows)
     bf = BruteForce(docs[:total], {t for q in queries for t in q}, vocab)
     want = oracle_answers(bf, queries, pairs)
-    for kind, (got, _) in res.items():
+    for kind, (got, _, _) in res.items():
         check_answers(kind, got, want[kind])
     log(f"brute force: {n_queries} queries of each kind agree "
         f"(conjunctive hits {sum(len(x) for x in want['conjunctive'])}, "
         f"disjunctive {sum(len(x) for x in want['disjunctive'])}, phrase "
-        f"{sum(len(x) for x in want['phrase'])})")
+        f"{sum(len(x) for x in want['phrase'])}, scored "
+        f"{sum(len(i) for i, _ in want['scored_full'])})")
     summary = dict(
         ingest_docs_per_s=(seg_docs - BATCH) / t_first,
         recycled_docs_per_s=extra_docs / t_after, rollover_s=t_roll,
         query_ms={k: float(np.median(v[1])) for k, v in res.items()},
+        query_peak_bytes={k: v[2] for k, v in res.items()},
+        scored_blocks_skipped=skip[0], scored_blocks_live=skip[1],
         high_water_slots=hw_after, peak_bytes=peak, launches=counts)
     del eng
     torch.cuda.empty_cache()
@@ -521,7 +676,8 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
 # phase 4: compaction and the sequential route, smaller depth
 # ---------------------------------------------------------------------------
 def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
-                     n_queries: int):
+                     n_queries: int, tmp: str):
+    """``tmp``: a scratch directory for the snapshot and the journal."""
     n_docs = docs.shape[0]
     layout, _, fmax = size_layout(docs, vocab, seg_docs)
     eng = LifecycleEngine(
@@ -529,9 +685,18 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
         max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
         max_len=1 << int(fmax - 1).bit_length(),
         compaction=CompactionPolicy(fanout=2), device="cuda")
-    for s in range(0, n_docs, BATCH):
-        eng.ingest(docs[s: s + BATCH])
+    snap = os.path.join(tmp, "engine.snap")
+    jrnl = os.path.join(tmp, "ingest.jrnl")
+    starts = range(0, n_docs, BATCH)
+    snap_at = len(starts) // 2
+    with recovery.IngestJournal(jrnl) as journal:
+        for i, s in enumerate(starts):
+            if i == snap_at:
+                recovery.snapshot(eng, snap, seq=i)
+            journal.append(docs[s: s + BATCH])      # journal, then apply
+            eng.ingest(docs[s: s + BATCH])
     eng.check_health()
+    fp = recovery.engine_fingerprint(eng)   # before scored queries
     tiers = [fz.tier for fz in eng.segments.frozen]
     if eng.stats.rollovers < 3 or eng.stats.compactions < 1:
         raise AssertionError(f"rollovers {eng.stats.rollovers}, "
@@ -555,6 +720,38 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
         if counts[k] <= 0:
             raise AssertionError(f"sequential route never launched {k}")
     del eng
+    torch.cuda.empty_cache()
+
+    # -- durability: the engine is gone; recover it on the card --------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = recovery.recover(snap, jrnl, expect_seq=len(starts),
+                           device="cuda")
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    if recovery.engine_fingerprint(rec) != fp:
+        raise AssertionError("recovered engine's fingerprint differs from "
+                             "the uncrashed engine's")
+    got = run_queries(rec, queries, pairs, n_queries)
+    for kind in got:
+        check_answers(f"{kind} recovered", got[kind][0], batched[kind][0])
+    with open(snap, "rb") as f:
+        blob = f.read()
+    cut = os.path.join(tmp, "truncated.snap")
+    with open(cut, "wb") as f:
+        f.write(blob[: len(blob) * 2 // 5])
+    try:
+        recovery.restore(cut, device="cuda")
+    except recovery.CorruptSnapshotError:
+        pass
+    else:
+        raise AssertionError("a truncated archive restored")
+    log(f"durability: snapshot at batch {snap_at} of {len(starts)} "
+        f"({len(blob)} bytes), journal replay of {len(starts) - snap_at} "
+        f"batches: recovered on the card in {t_rec:.2f} s with an equal "
+        f"fingerprint and equal answers of every kind; a truncated "
+        f"archive raises CorruptSnapshotError")
+    del rec
     torch.cuda.empty_cache()
     return counts
 
@@ -594,13 +791,17 @@ def main(argv=None) -> int:
                           n_queries=64, fmax=fmax)
     small = 1 << 16
     sdocs = make_stream(1 << 16, 4 * small + small // 2, seed=7)
-    seq_counts = phase_sequential(sdocs, 1 << 16, small, n_queries=16)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_counts = phase_sequential(sdocs, 1 << 16, small, n_queries=16,
+                                      tmp=tmp)
 
     table = []
     for name in ("bulk_append", "segment_intersect_mask_batched",
-                 "intersect_mask", "segment_intersect_mask"):
+                 "intersect_mask", "segment_intersect_mask",
+                 "scored_intersect_batched"):
         r = kernels[name]
-        on_main = name in ("bulk_append", "segment_intersect_mask_batched")
+        on_main = name in ("bulk_append", "segment_intersect_mask_batched",
+                           "scored_intersect_batched")
         table.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],

@@ -10,8 +10,9 @@ Queries span the active pool and all frozen segments:
   * **Active pool** — :mod:`repro_torch.core.query`.
   * **Frozen segments** — each wrapped in a :class:`PackedSegment`:
     per-term GLOBAL docid lists gap-compressed into 128-docid blocks
-    (:mod:`repro_torch.kernels.segment_intersect`); conjunctions run the
-    fused decode+intersect CUDA kernel.
+    (:mod:`repro_torch.kernels.segment_intersect`), with a quantized
+    impact plane for scored queries; conjunctions run the fused
+    decode+intersect CUDA kernels.
   * **Merge** — every segment owns a disjoint ascending docid range, so
     per-segment descending lists concatenated newest-segment-first ARE
     the global reverse-chronological result.
@@ -36,12 +37,11 @@ from repro_torch.core import query as q
 from repro_torch.core import segments as seg_mod
 from repro_torch.core import slicepool
 from repro_torch.core.pointers import PoolLayout
-from repro_torch.kernels.segment_intersect import (PackedList,
+from repro_torch.kernels.segment_intersect import (SCORE_MAX, PackedList,
+                                                   ScoredList,
+                                                   attach_scores,
                                                    decode_packed,
                                                    pack_docids)
-
-_SCORED = ("scored retrieval is the next slice of the port (ROADMAP.md, "
-           "Queue 1 item 7): not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +56,8 @@ class PackedSegment:
         self.seg = seg
         self.doc_base = int(seg.doc_base)
         self._packed: Dict[int, PackedList] = {}
+        self._tf: Dict[int, tuple] = {}
+        self._scored: Dict[int, ScoredList] = {}
 
     def docids_asc(self, term: int) -> np.ndarray:
         """Ascending GLOBAL docids of ``term`` in this segment."""
@@ -92,11 +94,32 @@ class PackedSegment:
         for t in terms:
             self.packed(t)
 
-    def tf_asc(self, term: int):
-        raise NotImplementedError(_SCORED)
+    def tf_asc(self, term: int) -> tuple:
+        """``(docids int64 asc GLOBAL, tf int64)`` — the per-doc term
+        frequency of ``term`` in this segment, from the positional
+        postings (one posting per occurrence); cached."""
+        term = int(term)
+        got = self._tf.get(term)
+        if got is None:
+            p = self.postings_asc(term)
+            rel = (p >> np.uint32(post.POS_BITS)).astype(np.int64)
+            ids, tf = np.unique(rel, return_counts=True)
+            got = (ids + self.doc_base, tf.astype(np.int64))
+            self._tf[term] = got
+        return got
 
-    def scored(self, term: int):
-        raise NotImplementedError(_SCORED)
+    def scored(self, term: int) -> ScoredList:
+        """The term's :meth:`packed` list with its quantized-impact
+        plane: one ``min(tf, SCORE_MAX)`` per docid lane, the per-block
+        max and the list max — the block-max WAND substrate."""
+        term = int(term)
+        got = self._scored.get(term)
+        if got is None:
+            _, tf = self.tf_asc(term)
+            imp = np.minimum(tf, SCORE_MAX).astype(np.int32)
+            got = attach_scores(self.packed(term), imp)
+            self._scored[term] = got
+        return got
 
 
 def conjunctive_packed(pseg: PackedSegment, terms: Sequence[int], *,
@@ -148,6 +171,24 @@ def phrase_packed(pseg: PackedSegment, t1: int, t2: int) -> np.ndarray:
     hit = p2[pos] == want
     ids = np.unique(p1[hit] >> np.uint32(post.POS_BITS)).astype(np.int64)
     return ids[::-1] + pseg.doc_base
+
+
+def scored_packed(pseg: PackedSegment, terms: Sequence[int]) -> tuple:
+    """Descending ``(docids int64, scores int64)`` of the conjunctive
+    scored query within one frozen segment — the pure-numpy oracle.
+    Score is the summed quantized impact ``min(tf, SCORE_MAX)`` over
+    the query terms."""
+    its = [pseg.tf_asc(t) for t in terms]
+    ids = its[0][0]
+    for more, _ in its[1:]:
+        ids = np.intersect1d(ids, more)
+    if ids.size == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    sc = np.zeros(ids.size, np.int64)
+    for uids, tf in its:
+        pos = np.searchsorted(uids, ids)
+        sc += np.minimum(tf[pos], SCORE_MAX)
+    return ids[::-1].copy(), sc[::-1].copy()
 
 
 def _valid_prefix(desc, counts: np.ndarray, cap: Optional[int]):
@@ -211,8 +252,9 @@ class LifecycleEngine:
 
     ``device`` holds every tensor ("cuda" by default; the CPU tests pass
     "cpu", where each kernel's plain version runs).  The batched frozen
-    conjunction runs the CUDA kernel exactly when the engine is on a CUDA
-    device and ``use_kernel``.
+    conjunction and the exhaustive scored conjunction run their CUDA
+    kernels exactly when the engine is on a CUDA device and
+    ``use_kernel``.
     """
 
     def __init__(self, layout: PoolLayout, vocab_size: int,
@@ -508,15 +550,20 @@ class LifecycleEngine:
         """Dispatch a query batch WITHOUT waiting for its results; the
         returned :class:`qexec.Pending`'s ``wait()`` yields what the
         synchronous method returns.  ``kind`` is ``conjunctive`` /
-        ``disjunctive`` / ``phrase`` (optionally ``limit``-capped) or
-        ``topk`` (needs ``k``)."""
-        if kind in ("scored", "scored_full"):
-            raise NotImplementedError(_SCORED)
-        if kind == "topk" and k is None:
+        ``disjunctive`` / ``phrase`` (optionally ``limit``-capped),
+        ``topk`` (needs ``k``), ``scored`` (:meth:`scored_topk_batch`,
+        needs ``k``) or ``scored_full`` (:meth:`scored_full_batch`)."""
+        if kind in ("topk", "scored") and k is None:
             raise ValueError(f"kind {kind!r} needs k")
         if not self.batched:
             if kind == "topk":
                 res = [self._unified("conjunctive", t, int(k), frozen_only)
+                       for t in queries]
+            elif kind == "scored":
+                res = [self._scored_unified(t, int(k), frozen_only)
+                       for t in queries]
+            elif kind == "scored_full":
+                res = [self._scored_unified(t, k, frozen_only)
                        for t in queries]
             elif kind in ("conjunctive", "disjunctive", "phrase"):
                 res = [self._unified(kind, t, limit, frozen_only)
@@ -527,23 +574,150 @@ class LifecycleEngine:
         if kind == "topk":
             return self._batch_topk_async(queries, int(k),
                                           frozen_only=frozen_only)
+        if kind == "scored":
+            return self._scored_batch_async(queries, int(k), full=False,
+                                            frozen_only=frozen_only)
+        if kind == "scored_full":
+            return self._scored_batch_async(queries, k, full=True,
+                                            frozen_only=frozen_only)
         if kind in ("conjunctive", "disjunctive", "phrase"):
             return self._batch_eval_async(kind, queries, limit,
                                           frozen_only=frozen_only)
         raise ValueError(f"unknown query kind {kind!r}")
 
-    # -- scored retrieval: a later slice ---------------------------------
-    def scored_topk(self, terms, k):
-        raise NotImplementedError(_SCORED)
+    # -- queries: scored retrieval (block-max WAND / MaxScore) -----------
+    def scored_topk(self, terms: Sequence[int], k: int) -> tuple:
+        """The ``k`` best-scoring docs holding every term, ranked by
+        (summed quantized impact desc, docid desc — ties newest first),
+        as ``(docids int64[m], scores int64[m])``.  Frozen segments run
+        the block-max WAND walk; skip counts accumulate in
+        ``stats.scored_blocks_skipped`` / ``scored_blocks_live``.
+        Bit-identical to ``scored_full(terms)[:k]``."""
+        return self.scored_topk_batch([terms], k)[0]
 
-    def scored_topk_batch(self, queries, k, frozen_only=False):
-        raise NotImplementedError(_SCORED)
+    def scored_topk_batch(self, queries: Sequence[Sequence[int]],
+                          k: int, frozen_only: bool = False
+                          ) -> List[tuple]:
+        if not self.batched:
+            return [self._scored_unified(t, int(k), frozen_only)
+                    for t in queries]
+        return self._scored_batch(queries, int(k), full=False,
+                                  frozen_only=frozen_only)
 
-    def scored_full(self, terms, k=None):
-        raise NotImplementedError(_SCORED)
+    def scored_full(self, terms: Sequence[int],
+                    k: Optional[int] = None) -> tuple:
+        """Exhaustive scored evaluation (no early termination); the
+        driving pair of every frozen (query, segment) cell runs the
+        ``scored_intersect_batched`` CUDA kernel."""
+        return self.scored_full_batch([terms], k)[0]
 
-    def scored_full_batch(self, queries, k=None, frozen_only=False):
-        raise NotImplementedError(_SCORED)
+    def scored_full_batch(self, queries: Sequence[Sequence[int]],
+                          k: Optional[int] = None,
+                          frozen_only: bool = False) -> List[tuple]:
+        if not self.batched:
+            return [self._scored_unified(t, k, frozen_only)
+                    for t in queries]
+        return self._scored_batch(queries, k, full=True,
+                                  frozen_only=frozen_only)
+
+    def _scored_batch(self, queries: Sequence, k: Optional[int],
+                      full: bool,
+                      frozen_only: bool = False) -> List[tuple]:
+        return self._scored_batch_async(queries, k, full=full,
+                                        frozen_only=frozen_only).wait()
+
+    def _scored_batch_async(self, queries: Sequence, k: Optional[int], *,
+                            full: bool,
+                            frozen_only: bool = False) -> qexec.Pending:
+        Q = len(queries)
+        if Q == 0:
+            return qexec.Pending((), lambda: [])
+        self._sync_frozen()
+        if not full:
+            if k <= 0:
+                empty = [(np.zeros(0, np.int64), np.zeros(0, np.int64))
+                         for _ in range(Q)]
+                return qexec.Pending((), lambda: empty)
+            if k > _TOPK_LIMIT_MAX:
+                # a generous cap, not a real top-k: full evaluation +
+                # slice beats a pow2(k)-wide heap
+                inner = self._scored_batch_async(
+                    queries, None, full=True, frozen_only=frozen_only)
+                return qexec.Pending(
+                    (), lambda: [(i[:k], s[:k]) for i, s in inner.wait()])
+        terms, n_terms = qexec.pad_query_batch(queries, self.max_query_len)
+        tb = min(qexec.bucket_pow2(int(n_terms.max()), 1),
+                 self.max_query_len)
+        base = self._base_u32()
+        nt = self._tensor(n_terms, torch.int32)
+        if frozen_only:
+            ad, an = self._stub_active(terms.shape[0])
+            asc = torch.zeros((terms.shape[0], 1), dtype=torch.int32,
+                              device=self.device)
+        else:
+            ad, asc, an = self._active_scored_batch(terms, n_terms, tb)
+        stack = self._frozen_stack()
+        lim = None if k is None else int(k)
+
+        def finish(N, *counts):
+            if counts:
+                # skip counters ride the deferred copy
+                self.stats.scored_blocks_skipped += int(counts[0].sum())
+                self.stats.scored_blocks_live += int(counts[1].sum())
+            D = _valid_prefix(ids, N, lim)
+            S = _valid_prefix(scs, N, lim)
+            return [(D[i, : int(N[i])].astype(np.int64)[:lim],
+                     S[i, : int(N[i])].astype(np.int64)[:lim])
+                    for i in range(Q)]
+
+        if stack is None:
+            ids, scs, n = qexec.finalize_scored(ad, asc, an, nt, base)
+            return qexec.Pending((n,), finish)
+        if full:
+            sc, _, _ = stack.gather_scored(terms[:, :tb], n_terms)
+            ids, scs, n = qexec.frozen_scored_merge(
+                ad, asc, an, sc, nt, base, nt_slots=tb,
+                kernel=self._batched_kernel)
+            ids, scs, n = qexec.rank_scored(ids, scs, n)
+            return qexec.Pending((n,), finish)
+        k_pad = qexec.bucket_pow2(k, floor=8)
+        sc, lasts, smax = stack.gather_scored(terms[:, :tb], n_terms)
+        ids, scs, n, bskip, blive = qexec.frozen_scored_topk(
+            ad, asc, an, sc, nt, base, lasts, smax, k, nt_slots=tb,
+            k_pad=k_pad)
+        return qexec.Pending((n, bskip, blive), finish)
+
+    def _scored_unified(self, terms: Sequence[int],
+                        k: Optional[int],
+                        frozen_only: bool = False) -> tuple:
+        """Per-query host-loop scored oracle (``batched=False``): active
+        scores from the batched engine, one numpy :func:`scored_packed`
+        per frozen segment, one stable full sort."""
+        self._sync_frozen()
+        if frozen_only:
+            ids = [np.zeros(0, np.int64)]
+            scs = [np.zeros(0, np.int64)]
+        else:
+            tmat, n_terms = qexec.pad_query_batch([tuple(terms)],
+                                                  self.max_query_len)
+            tb = min(qexec.bucket_pow2(int(n_terms.max()), 1),
+                     self.max_query_len)
+            ad, asc, an = self._active_scored_batch(tmat, n_terms, tb)
+            n0 = int(an[0])
+            ids = [ad[0, :n0].cpu().numpy().astype(np.int64)
+                   + self.doc_base]
+            scs = [asc[0, :n0].cpu().numpy().astype(np.int64)]
+        for pseg in reversed(self._packed):   # newest frozen first
+            i, s = scored_packed(pseg, terms)
+            ids.append(i)
+            scs.append(s)
+        flat_i = np.concatenate(ids)
+        flat_s = np.concatenate(scs)
+        order = np.lexsort((-flat_i, -flat_s))  # score desc, docid desc
+        flat_i, flat_s = flat_i[order], flat_s[order]
+        if k is not None:
+            flat_i, flat_s = flat_i[:k], flat_s[:k]
+        return flat_i, flat_s
 
     # -- queries: per-query host-loop oracle (batched=False) -------------
     def _unified(self, kind: str, terms: Sequence[int],
@@ -617,6 +791,12 @@ class LifecycleEngine:
                                        self.max_len, tb, k_pad)
         return fn(self.segments.active.state, self._tensor(terms[:, :tb]),
                   self._tensor(n_terms, torch.int32), min(k, k_pad))
+
+    def _active_scored_batch(self, terms, n_terms, tb: int):
+        fn = qexec.make_active_scored_fn(self.layout, self.max_slices,
+                                         self.max_len, tb)
+        return fn(self.segments.active.state, self._tensor(terms[:, :tb]),
+                  self._tensor(n_terms, torch.int32))
 
     def _active_desc(self, kind: str, terms: Sequence[int]) -> np.ndarray:
         state = self.segments.active.state

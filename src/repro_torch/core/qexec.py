@@ -19,8 +19,14 @@ Three layers, each bit-identical to the per-query oracle route:
      hits are banked; :func:`make_active_topk_fn` banks the driving
      term's newest hits in the active pool.
 
-The scored half (block-max WAND) is a later slice (ROADMAP.md, Queue 1
-item 7).
+Scored retrieval ranks the conjunctive hits by the summed quantized
+impact ``min(tf, 255)`` of their terms (ties newest first):
+:func:`frozen_scored_merge` is the exhaustive evaluation (the driving
+(term0, term1) pair of all Q x G cells is ONE launch of the
+``scored_intersect_batched`` CUDA kernel), ranked by
+:func:`rank_scored`; :func:`frozen_scored_topk` is the block-max WAND
+walk that skips whole segments and 128-docid blocks whose score bound
+cannot enter the running top-k.
 """
 from __future__ import annotations
 
@@ -34,12 +40,16 @@ from repro_torch.core import postings as post
 from repro_torch.core import query as q
 from repro_torch.core import slicepool
 from repro_torch.core.pointers import PoolLayout, U32
-from repro_torch.core.sharded_index import merge_desc
-from repro_torch.kernels.segment_intersect import (SEG_BLOCK, StackedLists,
-                                                   _pow2, decode_stacked,
-                                                   pack_docids,
+from repro_torch.core.sharded_index import merge_desc, merge_desc_scored
+from repro_torch.kernels.segment_intersect import (SEG_BLOCK, ScoredStack,
+                                                   StackedLists, _pow2,
+                                                   decode_scores,
+                                                   decode_stacked,
+                                                   pack_docids, pack_scored,
+                                                   repad_scored,
                                                    repad_stacked,
-                                                   stack_packed)
+                                                   stack_packed,
+                                                   stack_scored)
 
 INVALID = q.INVALID
 
@@ -61,9 +71,10 @@ class FrozenStack:
     """Stacked view of an ordered frozen-segment list (oldest -> newest).
 
     Wraps the lifecycle's ``PackedSegment`` objects (duck-typed:
-    ``.packed(t)`` / ``.postings_asc(t)`` / ``.bounds(t)`` /
-    ``.doc_base``) and caches, per term, the numpy ``[G, ...]`` stack
-    plus the last-docid summaries — built once per (stack, term) and
+    ``.packed(t)`` / ``.scored(t)`` / ``.postings_asc(t)`` /
+    ``.bounds(t)`` / ``.doc_base``) and caches, per term, the numpy
+    ``[G, ...]`` stacks (plain and scored) plus the last-docid and
+    max-impact summaries — built once per (stack, term) and
     reused until the next change to the frozen-segment list, which drops
     the whole stack.  Gathers return torch tensors on ``device``.
     """
@@ -76,6 +87,12 @@ class FrozenStack:
         self._terms: Dict[int, Tuple[StackedLists, np.ndarray]] = {}
         self._posts: Dict[int, np.ndarray] = {}
         self._empty: Optional[Tuple[StackedLists, np.ndarray]] = None
+        # scored: (ScoredStack, lasts, smax) per term — smax is the
+        # per-(term, segment) max impact the segment-level skip reads
+        self._sterms: Dict[int, Tuple[ScoredStack, np.ndarray,
+                                      np.ndarray]] = {}
+        self._sempty: Optional[Tuple[ScoredStack, np.ndarray,
+                                     np.ndarray]] = None
 
     @property
     def n_segments(self) -> int:
@@ -101,6 +118,31 @@ class FrozenStack:
                                for _ in self.psegs])
             self._empty = (st, np.zeros(self.n_segments, np.uint32))
         return self._empty
+
+    def _scored_term(self, term: int
+                     ) -> Tuple[ScoredStack, np.ndarray, np.ndarray]:
+        got = self._sterms.get(term)
+        if got is None:
+            scs = [p.scored(term) for p in self.psegs]
+            st = stack_scored(scs)
+            lasts = np.zeros(self.n_segments, np.uint32)
+            smax = np.zeros(self.n_segments, np.int32)
+            for g, p in enumerate(self.psegs):
+                c, _, last = p.bounds(term)
+                lasts[g] = last if c else 0
+                smax[g] = scs[g].smax
+            got = (st, lasts, smax)
+            self._sterms[term] = got
+        return got
+
+    def _empty_scored(self) -> Tuple[ScoredStack, np.ndarray, np.ndarray]:
+        if self._sempty is None:
+            st = stack_scored([pack_scored(np.zeros(0, np.uint32),
+                                           np.zeros(0, np.int32))
+                               for _ in self.psegs])
+            self._sempty = (st, np.zeros(self.n_segments, np.uint32),
+                            np.zeros(self.n_segments, np.int32))
+        return self._sempty
 
     def _post_stack(self, term: int) -> np.ndarray:
         got = self._posts.get(term)
@@ -133,10 +175,33 @@ class FrozenStack:
         lasts = np.stack([np.stack([c[1] for c in row]) for row in cells])
         return leaves.to(self.device), _u32_tensor(lasts, self.device)
 
-    def gather_scored(self, terms: np.ndarray, n_terms: np.ndarray):
-        raise NotImplementedError(
-            "scored stacks belong to the scored-retrieval slice "
-            "(ROADMAP.md, Queue 1 item 7), not yet ported")
+    def gather_scored(self, terms: np.ndarray, n_terms: np.ndarray
+                      ) -> Tuple[ScoredStack, torch.Tensor, torch.Tensor]:
+        """Scored counterpart of :meth:`gather`: ``(ScoredStack with [Q,
+        T, G, ...] torch leaves, lasts int64[Q, T, G], smax int32[Q, T,
+        G])`` — docid stacks plus impact planes, block-max planes and
+        the per-(term, segment) max impact."""
+        cells = [[self._scored_term(int(t)) if j < int(n)
+                  else self._empty_scored()
+                  for j, t in enumerate(row)]
+                 for row, n in zip(terms, n_terms)]
+        nb = bucket_pow2(max(c[0].ids.n_blocks for row in cells
+                             for c in row))
+        pw = bucket_pow2(max(c[0].ids.n_words for row in cells
+                             for c in row))
+        rows = [[repad_scored(c[0], nb, pw) for c in row] for row in cells]
+
+        def stack(get):
+            return np.stack([np.stack([get(c) for c in row])
+                             for row in rows])
+        ids = StackedLists(*[stack(lambda c, f=f: getattr(c.ids, f))
+                             for f in StackedLists._fields])
+        leaves = ScoredStack(ids=ids, swords=stack(lambda c: c.swords),
+                             bmax=stack(lambda c: c.bmax))
+        lasts = np.stack([np.stack([c[1] for c in row]) for row in cells])
+        smax = np.stack([np.stack([c[2] for c in row]) for row in cells])
+        return (leaves.to(self.device), _u32_tensor(lasts, self.device),
+                torch.from_numpy(smax).to(self.device))
 
     def gather_postings(self, t1s: np.ndarray, t2s: np.ndarray,
                         n_live: Optional[int] = None
@@ -337,6 +402,260 @@ def frozen_topk(active_desc, active_n, lists: StackedLists, n_terms,
         out.scatter_(1, idx, desc_g)
         b = torch.where(want, (b + n_g).clamp(max=k), b)
     return out[:, :k_pad], b.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Scored retrieval: block-max WAND / MaxScore over the frozen stack
+# ---------------------------------------------------------------------------
+def _rank_scored(ids, scores):
+    """Stable sort of the last axis by (score desc, docid desc), INVALID
+    lanes last — ties therefore resolve newest-doc-first.
+
+    The reference sorts on two uint32 keys, ``k1 = 0x7FFFFFFF - score``
+    (mod 2**32) and ``k2 = 0xFFFFFFFF - id``, both forced to 0xFFFFFFFF
+    on INVALID lanes.  Here the pair is one int64 key, ``(k1 - 2**31) *
+    2**32 + k2``, which orders exactly like the pair and stays inside
+    the int64 range (INVALID lanes get its maximum), so one stable sort
+    gives the reference's permutation."""
+    valid = ids != INVALID
+    k1 = torch.where(valid, (0x7FFFFFFF - scores.long()) & U32, U32)
+    k2 = torch.where(valid, U32 - ids, U32)
+    order = torch.sort((k1 - (1 << 31)) * (1 << 32) + k2, dim=-1,
+                       stable=True).indices
+    return torch.gather(ids, -1, order), torch.gather(scores, -1, order)
+
+
+def _fold_scored(ids_tg, scs_tg, nt, nt_slots, sc01=None):
+    """Scored conjunctive fold over each cell: ``ids_tg[..., T, W]``
+    decoded docids + ``scs_tg[..., T, W]`` impact lanes, ``nt[...]`` live
+    terms -> (hit bool[..., W], score int32[..., W]) on term 0's lanes.
+    ``sc01`` optionally injects the kernel-computed (term0 + term1)
+    impact sums (0 = no hit) of the driving pair."""
+    cand = ids_tg[..., 0, :].contiguous()
+    valid = cand != INVALID
+    if sc01 is None:
+        hit = valid
+        score = scs_tg[..., 0, :]
+        start = 1
+    else:
+        use1 = (nt > 1)[..., None]
+        hit = torch.where(use1, sc01 > 0, valid)
+        score = torch.where(use1, sc01, scs_tg[..., 0, :])
+        start = 2
+    W = cand.shape[-1]
+    for j in range(start, nt_slots):
+        use = (j < nt)[..., None]
+        ids_j = ids_tg[..., j, :].contiguous()
+        pos = torch.searchsorted(ids_j, cand).clamp_(max=W - 1)
+        m = (torch.gather(ids_j, -1, pos) == cand) & valid
+        hit = hit & torch.where(use, m, True)
+        score = score + torch.where(
+            use & m, torch.gather(scs_tg[..., j, :], -1, pos), 0)
+    return hit & valid, score
+
+
+def _merge_parts_scored(active_desc, active_sc, active_n, desc_seg,
+                        sc_seg, n_seg, live, base: int):
+    Q, A = active_desc.shape
+    G, W = desc_seg.shape[1], desc_seg.shape[2]
+    an = torch.where(live, active_n, 0)
+    alane = torch.arange(A, device=active_desc.device) < an[:, None]
+    a_glob = torch.where(alane, (active_desc + base) & U32,
+                         torch.full_like(active_desc, INVALID))
+    a_sc = torch.where(alane, active_sc, 0)
+    nseg = torch.where(live[:, None], n_seg, 0)
+    mseg = (torch.arange(W, device=desc_seg.device)
+            < nseg[..., None])
+    dseg = torch.where(mseg, desc_seg, torch.full_like(desc_seg, INVALID))
+    sseg = torch.where(mseg, sc_seg, 0)
+    flat = torch.cat([a_glob, dseg.reshape(Q, G * W)], 1)
+    flat_sc = torch.cat([a_sc, sseg.reshape(Q, G * W)], 1)
+    ids, scs = merge_desc_scored(flat, flat_sc)
+    return ids, scs, (an + nseg.sum(1)).to(torch.int32)
+
+
+def frozen_scored_merge(active_desc, active_sc, active_n, sc: ScoredStack,
+                        n_terms, base: int, *, nt_slots: int,
+                        kernel: bool = False):
+    """FULL scored conjunctive evaluation over the frozen stack (no early
+    termination — the exhaustive baseline scored top-k is proven
+    bit-identical to).  Returns globally-descending ``(ids int64[Q, A +
+    G * W], scores int32[Q, ...], n int32[Q])``; rank by score
+    afterwards with :func:`rank_scored`.
+
+    ``kernel=True`` routes the driving (term0, term1) scored
+    intersection of every (query, segment) pair through ONE launch of
+    ``kernels.ops.scored_intersect_batched`` with skipping disabled
+    (th = -1)."""
+    from repro_torch.kernels import ops
+    lists = sc.ids
+    Q, T, G, _ = lists.firsts.shape
+    W = lists.n_blocks * SEG_BLOCK
+    dev = active_desc.device
+    sc01 = None
+    if kernel and nt_slots >= 2:
+        def flat(x, t):
+            return x[:, t].reshape((Q * G,) + x.shape[3:]).contiguous()
+
+        def slot_stack(t):
+            st = StackedLists(*[flat(getattr(lists, f), t)
+                                for f in StackedLists._fields[:-1]],
+                              ns=flat(lists.ns, t))
+            return ScoredStack(ids=st, swords=flat(sc.swords, t),
+                               bmax=flat(sc.bmax, t))
+        out = ops.scored_intersect_batched(
+            slot_stack(0), slot_stack(1),
+            torch.zeros(Q * G, dtype=torch.int32, device=dev),
+            torch.full((Q * G,), -1, dtype=torch.int32, device=dev))
+        sc01 = out.reshape(Q, G, W)
+    ids = decode_stacked(lists).permute(0, 2, 1, 3)    # [Q, G, T, W]
+    scs = decode_scores(sc.swords).permute(0, 2, 1, 3)
+    nt = n_terms[:, None].expand(Q, G)
+    hit, score = _fold_scored(ids, scs, nt, nt_slots, sc01)
+    comp_ids, n_seg = q._compact(ids[..., 0, :], hit)
+    comp_sc, _ = q._compact(score, hit, fill=0)
+    desc_seg = q.flip_valid(comp_ids, n_seg, INVALID)
+    sc_seg = q.flip_valid(comp_sc, n_seg, 0)
+    return _merge_parts_scored(active_desc, active_sc, active_n, desc_seg,
+                               sc_seg, n_seg, n_terms > 0, base)
+
+
+def rank_scored(ids, scores, n):
+    """Re-rank docid-descending scored rows by (score desc, docid
+    desc)."""
+    m = torch.arange(ids.shape[1], device=ids.device) < n[:, None]
+    ids = torch.where(m, ids, torch.full_like(ids, INVALID))
+    scores = torch.where(m, scores, 0)
+    ids_s, sc_s = _rank_scored(ids, scores)
+    return ids_s, sc_s, n
+
+
+def finalize_scored(active_desc, active_sc, active_n, live, base: int):
+    """No-frozen-segments path: globalise, mask and rank the active batch
+    by (score desc, docid desc)."""
+    an = torch.where(live > 0, active_n, 0)
+    m = (torch.arange(active_desc.shape[1], device=active_desc.device)
+         < an[:, None])
+    ids = torch.where(m, (active_desc + base) & U32,
+                      torch.full_like(active_desc, INVALID))
+    scs = torch.where(m, active_sc, 0)
+    ids_s, sc_s = _rank_scored(ids, scs)
+    return ids_s, sc_s, an
+
+
+def frozen_scored_topk(active_desc, active_sc, active_n, sc: ScoredStack,
+                       n_terms, base: int, lasts_doc, smax, k: int, *,
+                       nt_slots: int, k_pad: int):
+    """Block-max WAND / MaxScore top-k over the frozen stack.
+
+    Walks segments newest-first keeping a ``k_pad``-wide heap of the
+    best (score desc, docid desc) candidates per query.  Three skip
+    levels, each justified by an upper bound that cannot beat the heap
+    threshold ``th`` (the current k-th best score once ``k`` candidates
+    are banked; -1 before, which disables skipping):
+
+      * segment-structural — an empty term list or disjoint first/last
+        docid ranges;
+      * segment-score — the live terms' summed per-segment max impacts
+        ``smax`` are <= th;
+      * block-score — a driving-term block whose block max plus the
+        other terms' segment maxima is <= th contributes nothing.
+
+    Bit-identical to ranking the full evaluation: a dropped candidate
+    scores <= th, and on a tie every incumbent is from a newer segment.
+    The walk visits (but mostly skips) every segment.  The loop over
+    segments is Python; every query row carries its own threshold,
+    heap and counters as tensors, and a segment no row evaluates costs
+    no decode.
+
+    Returns ``(ids int64[Q, k_pad], scores int32[Q, k_pad], n int32[Q],
+    blocks_skipped int64[Q], blocks_live int64[Q])`` — the counters
+    count driving-term blocks of structurally-live segments only."""
+    lists = sc.ids
+    Q, T, G, NB = lists.firsts.shape
+    dev = active_desc.device
+    an = torch.where(n_terms > 0, active_n, 0)
+    A = active_desc.shape[1]
+    m = torch.arange(A, device=dev) < an[:, None]
+    a_ids = torch.where(m, (active_desc + base) & U32,
+                        torch.full_like(active_desc, INVALID))
+    a_sc = torch.where(m, active_sc, 0).to(torch.int32)
+    if A < k_pad:
+        a_ids = torch.cat([a_ids, torch.full((Q, k_pad - A), INVALID,
+                                             dtype=a_ids.dtype,
+                                             device=dev)], 1)
+        a_sc = torch.cat([a_sc, torch.zeros((Q, k_pad - A),
+                                            dtype=torch.int32,
+                                            device=dev)], 1)
+    hid, hsc = _rank_scored(a_ids, a_sc)
+    hid, hsc = hid[:, :k_pad], hsc[:, :k_pad]
+    b = an.clamp(max=k).long()
+    bskip = torch.zeros(Q, dtype=torch.int64, device=dev)
+    blive = torch.zeros(Q, dtype=torch.int64, device=dev)
+    tslot = torch.arange(nt_slots, device=dev)
+    slot = tslot[None, :] < n_terms[:, None]               # [Q, T]
+    other = slot & (tslot[None, :] > 0)
+    fd = lists.firsts[..., 0]                              # [Q, T, G]
+    blk = torch.arange(NB, device=dev) * SEG_BLOCK
+    for i in range(G):
+        g = G - 1 - i                                      # newest first
+        ns_g = lists.ns[:, :, g]                           # [Q, T]
+        nonempty = (torch.where(slot, ns_g > 0, True).all(1)
+                    & (n_terms > 0))
+        lo = torch.where(slot, fd[:, :, g], 0).amax(1)
+        hi = torch.where(slot, lasts_doc[:, :, g], INVALID - 1).amin(1)
+        live_g = nonempty & (lo <= hi)
+        sm_g = smax[:, :, g].long()
+        ub_g = torch.where(slot, sm_g, 0).sum(1)
+        th = torch.where(b >= k, hsc[:, max(k - 1, 0)].long(), -1)
+        eval_g = live_g & (ub_g > th)
+        rest = torch.where(other, sm_g, 0).sum(1)
+        nblk0 = (ns_g[:, 0].long() + SEG_BLOCK - 1) // SEG_BLOCK
+        blive += torch.where(live_g, nblk0, 0)
+        bskip += torch.where(live_g & ~eval_g, nblk0, 0)
+        if not bool(eval_g.any()):
+            continue
+        seg = ScoredStack(
+            ids=StackedLists(*[getattr(lists, f)[:, :, g]
+                               for f in StackedLists._fields]),
+            swords=sc.swords[:, :, g], bmax=sc.bmax[:, :, g])
+        ids = decode_stacked(seg.ids)                      # [Q, T, W]
+        hit, score = _fold_scored(ids, decode_scores(seg.swords), n_terms,
+                                  nt_slots)
+        blk_ok = (seg.bmax[:, 0].long() + rest[:, None]) > th[:, None]
+        real_blk = blk[None, :] < ns_g[:, :1]
+        nskip = (~blk_ok & real_blk).sum(1)
+        keep = (hit & torch.repeat_interleave(blk_ok, SEG_BLOCK, dim=1)
+                & eval_g[:, None])
+        bskip += torch.where(eval_g, nskip, 0)
+        cid = torch.where(keep, ids[:, 0], torch.full_like(ids[:, 0],
+                                                           INVALID))
+        csc = torch.where(keep, score, 0)
+        mi, ms = _rank_scored(torch.cat([hid, cid], 1),
+                              torch.cat([hsc, csc], 1))
+        hid, hsc = mi[:, :k_pad], ms[:, :k_pad]
+        b = (b + keep.sum(1)).clamp(max=k)
+    lane = torch.arange(k_pad, device=dev)
+    return (torch.where(lane < b[:, None], hid, torch.full_like(hid,
+                                                               INVALID)),
+            torch.where(lane < b[:, None], hsc, 0), b.to(torch.int32),
+            bskip, blive)
+
+
+@functools.lru_cache(maxsize=slicepool.FACTORY_CACHE_SIZE)
+def make_active_scored_fn(layout: PoolLayout, max_slices: int,
+                          max_len: int, max_query_len: int = 8):
+    """A whole scored-conjunctive batch over the ACTIVE pool: the
+    engine's batched ``conjunctive_scored_asc``, flipped to descending
+    with the score lanes kept doc-aligned.  Returns SEGMENT-RELATIVE
+    ``(desc int64[Q, W], scores int32[Q, W], n int32[Q])``."""
+    eng = q.make_engine(layout, max_slices, max_len, max_query_len)
+
+    def run(state, terms, n_terms):
+        asc, sc, n = eng.conjunctive_scored_asc(state, terms, n_terms)
+        return q.asc_to_desc(asc, n), q.flip_valid(sc, n, 0), n
+
+    return run
 
 
 @functools.lru_cache(maxsize=slicepool.FACTORY_CACHE_SIZE)

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import postings as post
 from repro_torch.core import slicepool
 from repro_torch.core.pointers import PoolLayout, U32
+from repro_torch.kernels.segment_intersect import SCORE_MAX
 
 INVALID = 0xFFFFFFFF
 FACTORY_CACHE_SIZE = slicepool.FACTORY_CACHE_SIZE
@@ -107,13 +108,7 @@ class QueryEngine(NamedTuple):
     conjunctive_asc: callable   # (state, terms, n_terms) -> (asc, n)
     disjunctive_asc: callable   # (state, terms, n_terms) -> (asc, n)
     phrase_asc: callable        # (state, t1, t2) -> (asc ids, n)
-    conjunctive_scored_asc: callable  # scored slice: not ported yet
-
-
-def _conjunctive_scored_asc(state, terms, n_terms):
-    raise NotImplementedError(
-        "conjunctive_scored_asc belongs to the scored-retrieval slice "
-        "(ROADMAP.md, Queue 1 item 7), not yet ported")
+    conjunctive_scored_asc: callable  # -> (asc, scores int32, n)
 
 
 @functools.lru_cache(maxsize=FACTORY_CACHE_SIZE)
@@ -222,7 +217,30 @@ def make_engine(layout: PoolLayout, max_slices: int, max_len: int,
         desc, n = conjunctive(state, terms, n_terms)
         return desc[..., :k], n.clamp(max=k)
 
+    def conjunctive_scored_asc(state, terms, n_terms):
+        """Conjunctive docids plus their summed quantized impacts
+        (``min(tf, SCORE_MAX)`` per live term).  A candidate's tf is its
+        occurrence count in the term's raw postings: two searchsorted
+        bounds over the sorted docid lanes, one term at a time."""
+        acc, na = conjunctive_asc(state, terms, n_terms)
+        terms = _as_terms(state, terms)
+        n_terms = torch.as_tensor(n_terms, device=acc.device)
+        live = acc != INVALID
+        score = torch.zeros(acc.shape, dtype=torch.int32, device=acc.device)
+        lane = torch.arange(max_len, device=acc.device)
+        for i in range(max_query_len):
+            plist, n = materialize(state, terms[..., i])
+            ids = torch.where(lane < n[..., None], post.docid(plist),
+                              torch.full_like(plist, INVALID))
+            ids = torch.sort(ids, -1).values
+            lo = torch.searchsorted(ids, acc)
+            hi = torch.searchsorted(ids, acc, right=True)
+            imp = (hi - lo).clamp_(max=SCORE_MAX).to(torch.int32)
+            use = (i < n_terms)[..., None] & live
+            score += torch.where(use, imp, 0)
+        return acc, score, na
+
     return QueryEngine(postings_desc, docids_asc, conjunctive,
                        disjunctive, phrase, read_all, topk_conjunctive,
                        conjunctive_asc, disjunctive_asc, phrase_asc,
-                       _conjunctive_scored_asc)
+                       conjunctive_scored_asc)

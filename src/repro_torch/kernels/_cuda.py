@@ -36,6 +36,9 @@ _SIGNATURES = {
     "segment_intersect_launch": [_P, _P, _P, _P, _P, _I64, _I64,
                                  _P, _P, _P, _P, _P, _I64, _I64,
                                  _P, _I64, _P],
+    "scored_intersect_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                _P, _P, _P, _I64, _P],
 }
 
 _state = {"lib": None, "build_s": None}

@@ -21,6 +21,7 @@ KERNELS = {
     "segment_intersect_mask_batched": _si.segment_intersect_mask_batched,
     "intersect_mask": _pi.intersect_mask,
     "segment_intersect_mask": _si.segment_intersect_mask,
+    "scored_intersect_batched": _si.scored_intersect_batched,
 }
 
 
@@ -53,6 +54,17 @@ def segment_intersect_mask_batched(a, b):
     return ref.segment_intersect_mask_batched_ref(a, b)
 
 
+def scored_intersect_batched(a, b, rest, th):
+    """Row-wise scored conjunction over a (query, segment) batch of
+    ScoredStacks: impact sums for a-docids present in b, with whole
+    a-blocks zeroed when their block-max WAND bound ``a.bmax + rest``
+    cannot beat the heap threshold ``th`` (int32[N] each; th = -1
+    disables skipping)."""
+    if _on_cuda("scored_intersect_batched", a.ids.firsts):
+        return _si.scored_intersect_batched(a, b, rest, th)
+    return ref.scored_intersect_batched_ref(a, b, rest, th)
+
+
 def bulk_append(heap, tail, freq, post_addr, post_val, ptr_addr, ptr_val,
                 term_idx, term_tail, term_freq):
     """Fused scatter-append of one ingest batch into (heap, tail, freq),
@@ -76,5 +88,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["intersect_mask", "segment_intersect_mask",
-           "segment_intersect_mask_batched", "bulk_append", "ref",
+           "segment_intersect_mask_batched", "scored_intersect_batched",
+           "bulk_append", "ref",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.segment_intersect import (decode_packed,
+from repro_torch.kernels.segment_intersect import (SEG_BLOCK,
+                                                   decode_packed,
+                                                   decode_scores,
                                                    decode_stacked)
 
 INVALID = 0xFFFFFFFF
@@ -65,3 +67,27 @@ def segment_intersect_mask_batched_ref(a_stacked, b_stacked):
         return torch.zeros(a_ids.shape, dtype=torch.int32,
                            device=a_ids.device)
     return intersect_mask_ref(a_ids, b_ids)
+
+
+def scored_intersect_batched_ref(a_scored, b_scored, rest, th):
+    """Decode docids and impact planes of both ``[N, ...]`` scored
+    stacks; membership by searchsorted (the first occurrence is the real
+    lane — lanes past b's count are INVALID); the two impacts summed
+    where b's is positive; every a-block whose WAND bound ``a.bmax +
+    rest`` cannot beat ``th`` zeroed."""
+    a_ids = decode_stacked(a_scored.ids)        # [N, NBa * SEG_BLOCK]
+    zeros = torch.zeros(a_ids.shape, dtype=torch.int32, device=a_ids.device)
+    if a_ids.shape[-1] == 0 or a_ids.shape[0] == 0:
+        return zeros
+    b_ids = decode_stacked(b_scored.ids)
+    if b_ids.shape[-1] == 0:
+        return zeros
+    a_sc = decode_scores(a_scored.swords)
+    b_sc = decode_scores(b_scored.swords)
+    pos = torch.searchsorted(b_ids, a_ids).clamp_(max=b_ids.shape[-1] - 1)
+    hit = (torch.gather(b_ids, -1, pos) == a_ids) & (a_ids != INVALID)
+    bs = torch.where(hit, torch.gather(b_sc, -1, pos), 0)
+    bound = a_scored.bmax.to(torch.int32) + rest.to(torch.int32)[:, None]
+    keep = torch.repeat_interleave(bound > th.to(torch.int32)[:, None],
+                                   SEG_BLOCK, dim=-1)
+    return torch.where(hit & keep & (bs > 0), a_sc + bs, zeros)

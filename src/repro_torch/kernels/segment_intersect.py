@@ -7,7 +7,11 @@ of this module packs, stacks and re-pads those lists (numpy, byte for
 byte the reference package's layout); the device half decodes them
 (:func:`decode_stacked`, plain torch) and intersects them in the CUDA
 kernel ``csrc/segment_intersect.cu`` (:func:`segment_intersect_mask`,
-:func:`segment_intersect_mask_batched`).
+:func:`segment_intersect_mask_batched`).  Scored lists carry one uint8
+impact per docid lane and a per-block maximum (:class:`ScoredList`,
+:class:`ScoredStack`); their scored conjunction with the block-max skip
+is the CUDA kernel ``csrc/scored_intersect.cu``
+(:func:`scored_intersect_batched`).
 
 Host-side leaves keep the reference's numpy dtypes (uint32 docids and
 payload words); :meth:`StackedLists.to` / :meth:`PackedList.to` move them
@@ -25,6 +29,8 @@ from repro_torch.kernels import _cuda
 INVALID = 0xFFFFFFFF
 SEG_BLOCK = 128          # docids per compressed block
 SLAB_WORDS = SEG_BLOCK   # words one block may span (bw=4 worst case)
+SCORE_MAX = 255          # 8-bit quantized impact ceiling (min(tf, 255))
+SCORE_WORDS = SEG_BLOCK // 4   # uint32 words per block's score plane
 
 _U32_FIELDS = ("firsts", "payload")
 
@@ -259,6 +265,106 @@ def decode_packed(packed: PackedList, device="cuda") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Scored lists: per-posting quantized impacts + per-block max-score planes
+# ---------------------------------------------------------------------------
+class ScoredList(NamedTuple):
+    """A :class:`PackedList` plus its quantized impact plane (numpy).
+
+    ``swords`` packs one uint8 impact per docid lane, four lanes per
+    little-endian uint32 word, 32 words per block, in the decoded lane
+    order.  Valid lanes carry impacts in [1, SCORE_MAX]; pad lanes and
+    pad blocks are zero, so 0 doubles as the no-hit sentinel.
+    ``bmax[b]`` is block b's max impact (the block-max WAND bound) and
+    ``smax`` the list-wide max (0 for an empty list).
+    """
+    ids: PackedList
+    swords: object      # uint32[n_blocks * SCORE_WORDS]
+    bmax: object        # int32[n_blocks]
+    smax: int
+
+
+def attach_scores(ids: PackedList, scores: np.ndarray) -> ScoredList:
+    """Attach an impact plane to a packed docid list (host-side, at
+    first query).  ``scores[i]`` belongs to the i-th valid docid lane and
+    must sit in [1, SCORE_MAX] — 0 is reserved for pad lanes."""
+    scores = np.asarray(scores)
+    if scores.shape != (ids.n,):
+        raise ValueError(f"scores shape {scores.shape} != ({ids.n},)")
+    if ids.n and (scores.min() < 1 or scores.max() > SCORE_MAX):
+        raise ValueError("impact scores must be in [1, SCORE_MAX]")
+    nb = ids.n_blocks
+    lanes = np.zeros(nb * SEG_BLOCK, np.uint8)
+    lanes[: ids.n] = scores
+    swords = np.ascontiguousarray(lanes).view("<u4")
+    bmax = (lanes.reshape(nb, SEG_BLOCK).max(axis=1).astype(np.int32)
+            if nb else np.zeros(0, np.int32))
+    smax = int(scores.max()) if ids.n else 0
+    return ScoredList(ids=ids, swords=swords, bmax=bmax, smax=smax)
+
+
+def pack_scored(ids: np.ndarray, scores: np.ndarray) -> ScoredList:
+    """Gap-compress ascending deduped docids and attach their impacts."""
+    return attach_scores(pack_docids(ids), scores)
+
+
+class ScoredStack(NamedTuple):
+    """A batch of :class:`ScoredList`s on shared pow2 shapes — the scored
+    counterpart of :class:`StackedLists`.  Pad rows and blocks carry
+    all-zero score planes and zero ``bmax``."""
+    ids: StackedLists
+    swords: object      # uint32[..., NB * SCORE_WORDS]
+    bmax: object        # int32[..., NB]
+
+    def to(self, device) -> "ScoredStack":
+        """Torch leaves on ``device`` (uint32 leaves as int64)."""
+        return ScoredStack(ids=self.ids.to(device),
+                           swords=_to_torch(self.swords, device, True),
+                           bmax=_to_torch(self.bmax, device, False))
+
+
+def stack_scored(scoreds, n_blocks: int = None,
+                 n_words: int = None) -> ScoredStack:
+    """Stack ScoredLists into one numpy :class:`ScoredStack` — see
+    :func:`stack_packed`."""
+    ids = stack_packed([s.ids for s in scoreds], n_blocks, n_words)
+    G, nb = len(scoreds), ids.n_blocks
+    swords = np.zeros((G, nb * SCORE_WORDS), np.uint32)
+    bmax = np.zeros((G, nb), np.int32)
+    for g, s in enumerate(scoreds):
+        k = s.ids.n_blocks
+        if k:
+            swords[g, : k * SCORE_WORDS] = np.asarray(s.swords)
+            bmax[g, :k] = np.asarray(s.bmax)
+    return ScoredStack(ids=ids, swords=swords, bmax=bmax)
+
+
+def repad_scored(s: ScoredStack, n_blocks: int,
+                 n_words: int) -> ScoredStack:
+    """Grow a numpy scored stack to a wider shared bucket; new pad blocks
+    get zero score planes."""
+    ids = repad_stacked(s.ids, n_blocks, n_words)
+    nb0 = s.ids.n_blocks
+    if nb0 == n_blocks:
+        return ScoredStack(ids=ids, swords=s.swords, bmax=s.bmax)
+    lead = s.bmax.shape[:-1]
+    pad_w = [(0, 0)] * len(lead) + [(0, (n_blocks - nb0) * SCORE_WORDS)]
+    pad_b = [(0, 0)] * len(lead) + [(0, n_blocks - nb0)]
+    return ScoredStack(ids=ids, swords=np.pad(s.swords, pad_w),
+                       bmax=np.pad(s.bmax, pad_b))
+
+
+def decode_scores(swords: torch.Tensor) -> torch.Tensor:
+    """Unpack uint8 impact lanes from score words (int64 holding uint32):
+    int32[..., 4 * W] over any leading dims.  One byte plane at a time,
+    so no int64 intermediate is wider than the words themselves."""
+    lead, w = swords.shape[:-1], swords.shape[-1]
+    out = torch.empty(lead + (w, 4), dtype=torch.int32, device=swords.device)
+    for b in range(4):
+        out[..., b] = (swords >> (8 * b)) & 0xFF
+    return out.reshape(lead + (w * 4,))
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 _LEAF_DTYPES = (("firsts", torch.int64), ("bws", torch.int32),
@@ -346,3 +452,64 @@ def segment_intersect_mask(a: PackedList, b: PackedList) -> torch.Tensor:
 
 
 segment_intersect_mask.launches = 0
+
+
+_SCORED_DTYPES = (("swords", torch.int64), ("bmax", torch.int32))
+
+
+def _check_scored(name, s, rows: int) -> None:
+    _check_lists(name, s.ids, rows, s.ids.ns)
+    _cuda.require_cuda(name, s.ids.firsts, s.swords, s.bmax)
+    for f, dt in _SCORED_DTYPES:
+        if getattr(s, f).dtype != dt:
+            raise TypeError(f"{name}: {f} must be {dt}, got "
+                            f"{getattr(s, f).dtype}")
+    nb = s.ids.firsts.shape[-1]
+    if s.swords.shape != (rows, nb * SCORE_WORDS) or \
+            s.bmax.shape != (rows, nb):
+        raise ValueError(f"{name}: score planes must be [{rows}, "
+                         f"{nb * SCORE_WORDS}] and [{rows}, {nb}]")
+
+
+def scored_intersect_batched(a: ScoredStack, b: ScoredStack, rest,
+                             th) -> torch.Tensor:
+    """Row-wise scored conjunction of a's docids with b over ``[N, ...]``
+    scored stacks: int32[N, a.n_blocks * SEG_BLOCK] where lane i holds
+    ``a_impact + b_impact`` if a's docid i occurs in b and its block's
+    WAND bound ``a.bmax + rest`` beats ``th``, else 0.  ``rest``/``th``
+    are int32[N] (th = -1 disables skipping).  One launch of the CUDA
+    kernel for the whole batch; skipped blocks are never decoded."""
+    if a.ids.firsts.dim() != 2 or b.ids.firsts.dim() != 2:
+        raise ValueError("stack leaves must be [N, ...]; reshape the "
+                         "(Q, G) batch first")
+    rows, nba = a.ids.firsts.shape
+    if b.ids.firsts.shape[0] != rows:
+        raise ValueError(f"row counts differ: {rows} != "
+                         f"{b.ids.firsts.shape[0]}")
+    name = "scored_intersect_batched"
+    _check_scored(name, a, rows)
+    _check_scored(name, b, rows)
+    _cuda.require_cuda(name, a.ids.firsts, rest, th)
+    for t, what in ((rest, "rest"), (th, "th")):
+        if t.dtype != torch.int32 or t.shape != (rows,):
+            raise TypeError(f"{name}: {what} must be int32[{rows}]")
+    out = torch.empty((rows, nba * SEG_BLOCK), dtype=torch.int32,
+                      device=a.ids.firsts.device)
+    if rows == 0 or nba == 0:
+        return out
+    scored_intersect_batched.launches += 1
+    err = _cuda.lib().scored_intersect_launch(
+        a.ids.firsts.data_ptr(), a.ids.bws.data_ptr(),
+        a.ids.woffs.data_ptr(), a.ids.payload.data_ptr(),
+        a.ids.ns.data_ptr(), a.swords.data_ptr(), a.bmax.data_ptr(), nba,
+        a.ids.payload.shape[-1],
+        b.ids.firsts.data_ptr(), b.ids.bws.data_ptr(),
+        b.ids.woffs.data_ptr(), b.ids.payload.data_ptr(),
+        b.ids.ns.data_ptr(), b.swords.data_ptr(), b.ids.firsts.shape[-1],
+        b.ids.payload.shape[-1], rest.data_ptr(), th.data_ptr(),
+        out.data_ptr(), rows, _cuda.stream_ptr(out.device))
+    _cuda.check(err, name)
+    return out
+
+
+scored_intersect_batched.launches = 0

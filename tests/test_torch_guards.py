@@ -18,8 +18,10 @@ import torch
 
 from repro_torch.core import pointers as tp
 from repro_torch.core import slicepool as tsp
+from repro_torch.core import recovery as trec
 from repro_torch.core.index import ActiveSegment
 from repro_torch.core.lifecycle import LifecycleEngine
+from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
 from repro_torch.kernels.segment_intersect import decode_packed
 
@@ -48,23 +50,36 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_guard_sees_every_port_module():
     names = {p.name for p in PORT_FILES}
     for must in ("lifecycle.py", "slicepool.py", "qexec.py", "ops.py",
-                 "segment_intersect.py", "chip_smoke.py"):
+                 "segment_intersect.py", "recovery.py", "chip_smoke.py"):
         assert must in names
 
 
 def test_entry_points_default_to_cuda():
+    """Every constructor and loader defaults to the card; the scored
+    methods run where the engine's tensors are."""
     for fn in (LifecycleEngine.__init__, ActiveSegment, SegmentSet,
-               tsp.init_state, tsp.make_bulk_ingest_fn, decode_packed):
+               tsp.init_state, tsp.make_bulk_ingest_fn, decode_packed,
+               FrozenStack, trec.restore, trec.recover):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for name in ("scored_topk", "scored_topk_batch", "scored_full",
+                 "scored_full_batch", "dispatch"):
+        assert "device" not in inspect.signature(
+            getattr(LifecycleEngine, name)).parameters
 
 
-def test_cuda_request_without_cuda_raises(monkeypatch):
+def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     """On a CUDA-less machine a CUDA engine raises instead of running on
     the CPU (and so do the lower entry points)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     layout = tp.PoolLayout(z=(1, 4), slices_per_pool=(8, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         LifecycleEngine(layout, 4, 10, max_slices=4, max_len=8)
+    snap = tmp_path / "e.snap"
+    trec.snapshot(LifecycleEngine(layout, 4, 10, max_slices=4, max_len=8,
+                                  device="cpu"), str(snap))
+    for fn in (trec.restore, trec.recover):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(str(snap))
     if not torch.backends.cuda.is_built():
         with pytest.raises((AssertionError, RuntimeError)):
             ActiveSegment(layout, 4)
@@ -109,3 +124,35 @@ def test_kernels_match_plain_versions_on_the_card():
     ref.bulk_append_ref(*r, *scat)
     for g, w in zip(k, r):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scored_kernel_matches_plain_version_on_the_card():
+    """The scored CUDA kernel against its plain version, bit for bit, at
+    thresholds that skip no block, some blocks and every block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_intersect import (pack_scored,
+                                                       stack_scored)
+    rng = np.random.default_rng(1)
+
+    def lists(seed):
+        r = np.random.default_rng(seed)
+        out = []
+        for n, span in ((0, 10), (129, 400), (900, 70000), (700, 1 << 30),
+                        (300, 900)):
+            ids = np.unique(r.integers(0, span, n)).astype(np.uint32)
+            out.append(pack_scored(ids, r.integers(1, 256, ids.size)))
+        return out
+    a = stack_scored(lists(2)).to("cuda")
+    b = stack_scored(lists(3)[::-1]).to("cuda")
+    rows = a.bmax.shape[0]
+    rest = torch.as_tensor(rng.integers(0, 100, rows), dtype=torch.int32,
+                           device="cuda")
+    for th_v in (-1, 200, 400):
+        th = torch.full((rows,), th_v, dtype=torch.int32, device="cuda")
+        got = ops.scored_intersect_batched(a, b, rest, th)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.scored_intersect_batched_ref(
+            a, b, rest, th))

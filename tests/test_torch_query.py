@@ -177,9 +177,26 @@ def test_set_op_helpers_match():
 
 
 def test_scored_engine_member_not_ported(both):
-    te = tqry.make_engine(both["tl"], both["ms"], both["max_len"], 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.conjunctive_scored_asc(both["tseg"].state, None, None)
+    """``conjunctive_scored_asc`` (now ported): docids, summed impacts
+    and counts equal the reference's, query by query and batched."""
+    mq = 4
+    je = jqry.make_engine(both["jl"], both["ms"], both["max_len"], mq)
+    te = tqry.make_engine(both["tl"], both["ms"], both["max_len"], mq)
+    terms, n_terms = tq.pad_query_batch(both["queries"], mq)
+    ba, bs, bn = te.conjunctive_scored_asc(
+        both["tseg"].state, torch.as_tensor(terms),
+        torch.as_tensor(n_terms))
+    scored = 0
+    for i, q in enumerate(both["queries"]):
+        ja, js, jn = je.conjunctive_scored_asc(
+            both["jseg"].state, jnp.asarray(terms[i], jnp.uint32),
+            jnp.int32(len(q)))
+        assert int(bn[i]) == int(jn)
+        np.testing.assert_array_equal(ba[i].numpy(),
+                                      np.asarray(ja, np.int64))
+        np.testing.assert_array_equal(bs[i].numpy(), np.asarray(js))
+        scored += int(np.asarray(js).sum())
+    assert scored > 0 and bs.dtype == torch.int32
 
 
 def test_merge_desc_matches():
