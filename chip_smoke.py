@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port of the streaming index on one GPU.
+"""Drive the PyTorch/CUDA port (the streaming index and the paged-KV
+decoder server) on one GPU.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,18 @@ Phases, in order (any failure raises and exits non-zero):
      for bit and with the brute force; every batch journaled and a
      snapshot taken mid-stream, then the engine dropped and recovered
      on the card: equal fingerprint and answers, and a truncated
-     archive must raise ``CorruptSnapshotError``.
+     archive must raise ``CorruptSnapshotError``;
+  5. paged-KV decoder serving at TinyLlama-1.1B's full width (22 layers,
+     d_model 2048, 32 query / 4 KV heads, d_head 64, random weights
+     from a seed) with the KV store on the slice-pool allocator, Z_kv =
+     <6, 8, 10>: the ``paged_attention`` kernel against its plain
+     version at the serving shapes in fp32 and bf16; the paged decode
+     against the dense decode in fp32 (4 sequences in lockstep, every
+     greedy token equal); then 64 requests on 32 slots (max_len 2048) in
+     bf16, with the kernel held against its plain version again on the
+     final serving state.
+
+``--paged-only`` runs phases 1 and 5 alone (a short rehearsal).
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -35,6 +47,7 @@ and the port (``src/repro_torch``); it needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,6 +61,7 @@ import torch
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 sys.path.insert(0, _SRC)
 
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import analytical  # noqa: E402
 from repro_torch.core import pointers  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
@@ -56,6 +70,10 @@ from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
+from repro_torch.launch import serve as paged_serve  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.paged import kv_cache as kv  # noqa: E402
+from repro_torch.paged import serve_model as sm  # noqa: E402
 from repro_torch.kernels.segment_intersect import (  # noqa: E402
     SCORE_MAX, SEG_BLOCK, attach_scores, decode_packed, decode_scores,
     decode_stacked, pack_docids, stack_packed, stack_scored)
@@ -71,6 +89,7 @@ REPLACES = {
     "segment_intersect_mask": "src/repro/kernels/segment_intersect.py:366",
     "scored_intersect_batched":
         "src/repro/kernels/segment_intersect.py:753",
+    "paged_attention": "src/repro/kernels/paged_attention.py:92",
 }
 SOURCES = {
     "bulk_append": "src/repro_torch/csrc/bulk_append.cu",
@@ -79,6 +98,7 @@ SOURCES = {
     "intersect_mask": "src/repro_torch/csrc/postings_intersect.cu",
     "segment_intersect_mask": "src/repro_torch/csrc/segment_intersect.cu",
     "scored_intersect_batched": "src/repro_torch/csrc/scored_intersect.cu",
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
 }
 SCORED_K = 10                # the scored top-k route's k
 
@@ -755,25 +775,258 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
     torch.cuda.empty_cache()
     return counts
 
+# ---------------------------------------------------------------------------
+# phase 5: paged-KV decoder serving at TinyLlama-1.1B full width
+# ---------------------------------------------------------------------------
+PAGED_Z = (6, 8, 10)          # Z_kv: 64 / 256 / 1024-token slices
+PAGED_ERR = 1e-4              # kernel vs plain version, fp32 output
+DENSE_ERR = 1e-3              # paged vs dense logits, fp32 at full width
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--segment-log2", type=int, default=23,
-                    help="docs per segment = 2**N (the vocabulary scales "
-                         "with it: 2**(N-3) terms)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    card = nvidia_smi()
-    log(f"card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    build_s = _cuda.build_seconds()
-    log(f"kernels built and loaded in {build_s:.1f} s")
 
-    seg_docs = 1 << args.segment_log2
-    vocab = 1 << (args.segment_log2 - 3)
+def _paged_case(rng, B, Hkv, G, D, lens, heap_pages, NP, dtype):
+    """Kernel inputs at serving shapes: distinct random pages of a full
+    heap per row (``NP`` columns, -1 pads past each row's length)."""
+    dev = torch.device("cuda")
+    table = rng.permutation(heap_pages)[:B * NP].reshape(B, NP)
+    need = np.minimum(-(-np.asarray(lens) // kv.PAGE), NP)
+    table = np.where(np.arange(NP)[None, :] < need[:, None], table, -1)
+    q = torch.randn(B, Hkv, G, D, device=dev).to(dtype)
+    kh = torch.randn(Hkv, heap_pages * kv.PAGE, D, device=dev).to(dtype)
+    vh = torch.randn_like(kh)
+    return (q, kh, vh, torch.as_tensor(table, dtype=torch.int32, device=dev),
+            torch.as_tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _paged_bytes(q, kh, table, lens) -> int:
+    """Bytes the kernel must move: the K and V pages each row walks
+    (min(ceil(len / 64), NP) pages, read once), q, the table, the lengths
+    and the fp32 output."""
+    B, Hkv, G, D = q.shape
+    pages = torch.clamp(-(-lens.long() // kv.PAGE), max=table.shape[1])
+    kv_bytes = int(pages.sum()) * kv.PAGE * D * kh.element_size() * 2 * Hkv
+    return (kv_bytes + q.numel() * q.element_size() + table.numel() * 4
+            + lens.numel() * 4 + q.numel() * 4)
+
+
+def _paged_check(name, args) -> float:
+    got = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or err > PAGED_ERR:
+        raise AssertionError(f"paged_attention/{name}: max abs err {err} "
+                             f"against its plain version (limit "
+                             f"{PAGED_ERR})")
+    return err
+
+
+def _sdpa_library(q, kh, vh, table, lens):
+    """The library yardstick: page gather, then one
+    ``scaled_dot_product_attention`` with a length mask and GQA."""
+    B, Hkv, G, D = q.shape
+    slots = (table.long().clamp(min=0)[:, :, None] * kv.PAGE
+             + torch.arange(kv.PAGE, device=q.device)).reshape(B, -1)
+    k = kh[:, slots].permute(1, 0, 2, 3)
+    v = vh[:, slots].permute(1, 0, 2, 3)
+    mask = (torch.arange(slots.shape[1], device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, Hkv * G, 1, D), k, v, attn_mask=mask, enable_gqa=True)
+
+
+def paged_kernel_row(cfg, layout, max_seqs: int, max_len: int, seed: int):
+    """The kernel against its plain version at the serving shapes (fp32
+    and bf16; edge lengths), and its times at full length in bf16."""
+    rng = np.random.default_rng(seed)
+    B, Hkv, D = max_seqs, cfg.n_kv_heads, cfg.d_head
+    G = cfg.n_heads // Hkv
+    NP = -(-max_len // kv.PAGE)
+    heap_pages = layout.total_slots // kv.PAGE
+    edge = [0, 1, 63, 64, 65, 1000, max_len - 1, max_len, max_len + 100]
+    lens = (edge + list(rng.integers(1, max_len + 1, B)))[:B]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args = _paged_case(rng, B, Hkv, G, D, lens, heap_pages, NP, dt)
+        errs[str(dt).split(".")[1]] = _paged_check(f"edge/{dt}", args)
+    args = _paged_case(rng, B, Hkv, G, D, [max_len] * B, heap_pages, NP,
+                       torch.bfloat16)
+    errs["bf16_full"] = _paged_check("full/bf16", args)
+    row = dict(ms=cuda_ms(lambda: ops.paged_attention(*args), reps=20),
+               plain_ms=cuda_ms(lambda: ref.paged_attention_ref(*args)),
+               library_ms=cuda_ms(lambda: _sdpa_library(*args), reps=20),
+               bytes=_paged_bytes(args[0], args[1], args[3], args[4]),
+               max_abs_err=max(errs.values()),
+               shape=f"B={B}, Hkv={Hkv}, G={G}, D={D}, {NP} pages of "
+                     f"{kv.PAGE} per row, all rows at {max_len} tokens, "
+                     f"bf16 heaps of {layout.total_slots} slots; max abs "
+                     f"err {errs}")
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"kernel paged_attention: {row['shape']}: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, library (gather + sdpa) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bytes']} bytes)")
+    return row
+
+
+def paged_vs_dense(cfg, params, n_seqs: int, steps: int, seed: int):
+    """The paged decode against the dense decode in fp32 at full width:
+    ``n_seqs`` sequences in lockstep, each fed its own greedy token."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    p32 = cast(params)     # the same weights, widened
+    layout = paged_serve.kv_layout(PAGED_Z, n_seqs, steps)
+    server = sm.make_server(cfg32, layout, n_seqs, steps, "cuda")
+    state = kv.init_kv_state(server.kv_cfg, "cuda")
+    cache = lm.init_decode_cache(cfg32, n_seqs, steps + 1, device="cuda")
+    dev = torch.device("cuda")
+    ids = torch.arange(n_seqs, device=dev)
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab, n_seqs), device=dev)
+    err = 0.0
+    for t in range(steps):
+        nxt, logits, state = sm.decode_step(server, p32, state, ids, tok)
+        dense, cache = lm.lm_decode_step(p32, cache, tok[:, None], t, cfg32)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"paged decode step {t}: non-finite logits")
+        err = max(err, float((logits - dense).abs().max()))
+        if not torch.equal(nxt.long(), dense.argmax(-1)):
+            raise AssertionError(f"paged vs dense step {t}: greedy tokens "
+                                 f"differ")
+        tok = nxt.long()
+    if err > DENSE_ERR or bool(state.overflow):
+        raise AssertionError(f"paged vs dense: logits max abs err {err} "
+                             f"(limit {DENSE_ERR}), overflow "
+                             f"{bool(state.overflow)}")
+    log(f"paged vs dense (fp32, TF32 off): {n_seqs} sequences x {steps} "
+        f"steps, logits max abs err {err:.3g}, every greedy token equal; "
+        f"final lengths {state.length.tolist()}")
+    del p32, state, cache
+    torch.cuda.empty_cache()
+    return err
+
+
+def traced_decode_step(server, params, state) -> dict:
+    """One decode step of every slot under the profiler: wall time and
+    device-busy time (kernels and copies on the one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = server.device
+    ids = torch.arange(server.kv_cfg.max_seqs, device=dev)
+    tok = torch.ones_like(ids)
+    sm.decode_step(server, params, state, ids, tok)          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, logits, _ = sm.decode_step(server, params, state, ids, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(logits).all():
+        raise AssertionError("traced decode step: non-finite logits")
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, c = per.get(e.name, (0.0, 0))
+            per[e.name] = (t + e.device_time_total / 1e3, c + 1)
+    busy = sum(t for t, _ in per.values())
+    top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
+                 key=lambda x: -x[1])[:6]
+    log(f"profile paged decode step (B={len(ids)}): wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms ({100 * (1 - busy / wall):.0f}% "
+        f"idle), {sum(c for _, c in per.values())} device events; top: "
+        + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in top))
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall)
+
+
+def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
+                max_len: int = 2048):
+    torch.manual_seed(seed)        # the kernel checks' random inputs
+    cfg = registry.get("tinyllama-1.1b").config
+    layout = paged_serve.kv_layout(PAGED_Z, max_seqs, max_len)
+    heap_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * layout.total_slots
+                  * cfg.d_head * 2)
+    log(f"paged serving: {cfg.name}, {cfg.param_count} parameters, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; Z_kv {PAGED_Z}, pools {layout.slices_per_pool} "
+        f"slices ({layout.total_slots} token slots, KV heap "
+        f"{heap_bytes / 2**30:.2f} GiB in bf16)")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"weights: random bf16 from seed {seed} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    row = paged_kernel_row(cfg, layout, max_seqs, max_len, seed)
+    row["dense_err"] = paged_vs_dense(cfg, params, 4, 80, seed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats, server, state = paged_serve.serve(
+        cfg, params, layout, requests=requests, max_seqs=max_seqs,
+        max_len=max_len, seed=seed, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    calls = stats["decode_steps"] + stats["prefill_tokens"]
+    if counts["paged_attention"] != cfg.n_layers * calls:
+        raise AssertionError(f"paged_attention launched "
+                             f"{counts['paged_attention']} times for "
+                             f"{calls} decode_step calls")
+    toks = np.concatenate([np.asarray(g) for g in
+                           stats["generated"].values()])
+    if len(stats["generated"]) != requests or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        raise AssertionError("serving produced a request without tokens "
+                             "or a token outside the vocabulary")
+    log(f"paged serving: prefill {stats['prefill_tokens']} tokens at "
+        f"{stats['prefill_tok_per_s']:.1f} tok/s, decode "
+        f"{stats['decode_tokens']} tokens in {stats['decode_steps']} steps "
+        f"at {stats['decode_tok_per_s']:.1f} tok/s ({stats['ms_per_step']:.2f}"
+        f" ms per step, median {stats['median_ms_per_step']:.2f}); overall "
+        f"{stats['tok_per_s']:.1f} tok/s over {stats['seconds']:.1f} s")
+    log(f"paged serving: C_M waste {stats['cm_waste']:.4f} (alloc "
+        f"{stats['alloc_slots']} vs used {stats['used_slots']} slots), mean "
+        f"chain hops {stats['mean_hops']:.3f}; {stats['outgrew_max_len']} "
+        f"slots outgrew max_len {max_len}; overflow {stats['overflow']}; "
+        f"watermark {stats['watermark']}; launches {json.dumps(counts)}; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
+
+    # the kernel against its plain version on the final serving state
+    ids = torch.arange(max_seqs, device="cuda")
+    table = server.tables(state, ids)
+    lens = state.length[ids]
+    q = torch.randn(max_seqs, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                    cfg.d_head, device="cuda").to(torch.bfloat16)
+    fin = {}
+    for layer in (0, cfg.n_layers - 1):
+        args = (q, state.k_heap[layer], state.v_heap[layer], table, lens)
+        fin[layer] = _paged_check(f"final state layer {layer}", args)
+    real_ms = cuda_ms(lambda: ops.paged_attention(*args), reps=20)
+    real_bound = _paged_bytes(q, args[1], table, lens) / HBM_BYTES_PER_S * 1e3
+    row["max_abs_err"] = max(row["max_abs_err"], *fin.values())
+    log(f"paged_attention on the final serving state (lengths "
+        f"{lens.tolist()}): max abs err {fin}; kernel {real_ms:.4f} ms, "
+        f"bound {real_bound:.4f} ms")
+    prof = traced_decode_step(server, params, state)
+    summary = dict(stats={k: v for k, v in stats.items()
+                          if k not in ("generated", "lengths")},
+                   peak_bytes=peak, final_state_ms=real_ms,
+                   final_state_bound_ms=real_bound, profile=prof,
+                   dense_err=row["dense_err"])
+    del params, state, server
+    torch.cuda.empty_cache()
+    return row, counts, summary
+
+
+def phase_index(segment_log2: int):
+    """Phases 2-4 (the streaming index); returns their kernel rows."""
+    seg_docs = 1 << segment_log2
+    vocab = 1 << (segment_log2 - 3)
     extra = seg_docs // 8
     t0 = time.perf_counter()
     # one more batch than the main path ingests: the traced ingest batch
@@ -789,6 +1042,7 @@ def main(argv=None) -> int:
     kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows, seed=5)
     main_sum = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
                           n_queries=64, fmax=fmax)
+    del docs
     small = 1 << 16
     sdocs = make_stream(1 << 16, 4 * small + small // 2, seed=7)
     with tempfile.TemporaryDirectory() as tmp:
@@ -813,6 +1067,42 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"]))
     log("main path: " + json.dumps({
         k: v for k, v in main_sum.items() if k != "launches"}))
+    return table
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--segment-log2", type=int, default=23,
+                    help="docs per segment = 2**N (the vocabulary scales "
+                         "with it: 2**(N-3) terms)")
+    ap.add_argument("--paged-only", action="store_true",
+                    help="run only the build and the paged-serving phase")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    log(f"card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    build_s = _cuda.build_seconds()
+    log(f"kernels built and loaded in {build_s:.1f} s")
+
+    table = []
+    if not args.paged_only:
+        table = phase_index(args.segment_log2)
+    t0 = time.perf_counter()
+    row, counts, paged_sum = phase_paged(seed=0)
+    table.append(dict(
+        name="paged_attention", route="cuda",
+        source=SOURCES["paged_attention"],
+        replaces=REPLACES["paged_attention"],
+        launches=counts["paged_attention"], path="paged_serve",
+        max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by="bytes", library_ms=row["library_ms"]))
+    log("paged serving: " + json.dumps(paged_sum))
+    log(f"paged phase {time.perf_counter() - t0:.1f} s")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     print(card, flush=True)

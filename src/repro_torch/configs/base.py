@@ -1,0 +1,74 @@
+"""LM configuration dataclass (a copy of the reference's ``LMConfig``).
+
+The GNN and recsys configs and ``ShapeSpec`` are not ported yet
+(ROADMAP.md Queue 1 item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    moe_top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_ep_pad: int = 0     # pad expert arrays to this count for EP
+                            # sharding (router still uses n_experts)
+    # attention pattern (gemma3: 5 local / 1 global)
+    sliding_window: Optional[int] = None
+    local_global_ratio: int = 0        # k local layers per global; 0 = all global
+    rope_theta: float = 10_000.0
+    # numerics / scale knobs
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    fsdp: bool = False                 # shard params over data axis too
+    remat: bool = True
+    n_microbatches: int = 1
+    tie_embeddings: bool = False
+    kv_quant: bool = False   # int8 KV cache w/ per-(token,head) scales
+    unroll_layers: bool = False
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def param_count(self) -> int:
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        attn = d * self.n_heads * self.d_head + 2 * d * self.n_kv_heads * self.d_head \
+            + self.n_heads * self.d_head * d
+        dense_mlp = 3 * d * f
+        per_layer = attn
+        if self.moe:
+            per_layer += self.n_experts * 3 * d * self.moe_d_ff
+            per_layer += self.n_shared_experts * 3 * d * self.moe_d_ff
+            per_layer += d * self.n_experts  # router
+        else:
+            per_layer += dense_mlp
+        return L * per_layer + 2 * V * d
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared only)."""
+        if not self.moe:
+            return self.param_count
+        d, L = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.d_head + 2 * d * self.n_kv_heads * self.d_head \
+            + self.n_heads * self.d_head * d
+        act = attn + (self.moe_top_k + self.n_shared_experts) * 3 * d * self.moe_d_ff \
+            + d * self.n_experts
+        return L * act + 2 * self.vocab * d

@@ -7,6 +7,10 @@ each frozen segment's CSR (``offsets``/``data``/``n_docs``/``doc_base``/
 ``tier``).  :func:`load_lifecycle` installs such a state into a port
 ``LifecycleEngine`` — which then computes exactly what the reference
 engine would — and :func:`dump_lifecycle` reads one back out.
+
+The LM side carries a reference ``init_lm`` parameter tree (nested
+dicts of numpy arrays) and a ``PagedKVState`` (uint32 ``link``/``tail``
+as int64 here) across the same way.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from repro_torch.core.index import ActiveSegment
 from repro_torch.core.segments import FrozenSegment
 from repro_torch.core.slicepool import PoolState
+from repro_torch.paged.kv_cache import PagedKVState
 
 # reference dtype of each PoolState leaf; torch carries uint32 as int64
 POOL_DTYPES = {"heap": np.uint32, "watermark": np.int32, "tail": np.uint32,
@@ -92,3 +97,73 @@ def dump_lifecycle(engine) -> Dict[str, object]:
                 next_docid=segs.active.next_docid, doc_base=segs._doc_base,
                 n_rollovers=segs.n_rollovers,
                 n_compactions=segs.n_compactions)
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and the paged KV state
+# ---------------------------------------------------------------------------
+KV_DTYPES = {"link": np.uint32, "watermark": np.int32, "tail": np.uint32,
+             "length": np.int32, "overflow": np.bool_}
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """A tensor from a numpy array; numpy bfloat16 (the ml_dtypes type
+    JAX hands out) travels as its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))   # a copy: numpy keeps its own
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
+    """The port's parameters from a reference ``init_lm`` tree of numpy
+    arrays (same names, stacked ``[L, ...]`` layers), in the config's
+    ``param_dtype``."""
+    dt = getattr(torch, cfg.param_dtype)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, device, dt)
+    return conv(tree)
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`.  numpy has no
+    bfloat16, so bf16 leaves come back as float32 (exactly)."""
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if node.dtype == torch.bfloat16:
+            node = node.float()
+        return node.cpu().numpy()
+    return conv(params)
+
+
+def kv_state_from_numpy(leaves: Mapping[str, np.ndarray],
+                        device="cuda") -> PagedKVState:
+    """The port's ``PagedKVState`` from the reference's seven leaves."""
+    out = {}
+    for f, dt in KV_DTYPES.items():
+        a = np.asarray(leaves[f])
+        if a.dtype != dt:
+            raise TypeError(f"leaf {f}: expected {np.dtype(dt)}, got "
+                            f"{a.dtype}")
+        out[f] = torch.from_numpy(
+            a.astype(np.int64 if dt is np.uint32 else dt)).to(device)
+    for f in ("k_heap", "v_heap"):
+        out[f] = _tensor(leaves[f], device)
+    return PagedKVState(**out)
+
+
+def kv_state_to_numpy(state: PagedKVState) -> Dict[str, np.ndarray]:
+    """The reference's leaves (its dtypes; bf16 heaps as float32) from a
+    port state."""
+    out = {f: getattr(state, f).cpu().numpy().astype(dt)
+           for f, dt in KV_DTYPES.items()}
+    for f in ("k_heap", "v_heap"):
+        h = getattr(state, f)
+        out[f] = (h.float() if h.dtype == torch.bfloat16 else h).cpu().numpy()
+    return out

@@ -168,6 +168,10 @@ def ptr_to_addr(tbl, pool_bits: int, ptr):
     return to_addr(tbl, *decode(tbl, pool_bits, ptr))
 
 
+def is_null(ptr):
+    return ptr == NULL
+
+
 # Host-side convenience (Python ints) ----------------------------------------
 def encode_host(layout: PoolLayout, pool: int, slice_idx: int, offset: int) -> int:
     z = layout.z[pool]

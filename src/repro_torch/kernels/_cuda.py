@@ -39,6 +39,8 @@ _SIGNATURES = {
     "scored_intersect_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _P, _P, _P, _I64, _P],
+    "paged_attention_launch": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64,
+                               _I64, _I64, _I64, _I64, _I64, _P],
 }
 
 _state = {"lib": None, "build_s": None}

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import bulk_append as _ba
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import postings_intersect as _pi
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_intersect as _si
@@ -22,6 +23,7 @@ KERNELS = {
     "intersect_mask": _pi.intersect_mask,
     "segment_intersect_mask": _si.segment_intersect_mask,
     "scored_intersect_batched": _si.scored_intersect_batched,
+    "paged_attention": _pa.paged_attention,
 }
 
 
@@ -78,6 +80,16 @@ def bulk_append(heap, tail, freq, post_addr, post_val, ptr_addr, ptr_val,
                                term_freq)
 
 
+def paged_attention(q, k_heap, v_heap, page_table, lengths):
+    """Decode attention of q [B, Hkv, G, D] through a page table over
+    [Hkv, slots, D] K/V heaps; fp32 [B, Hkv, G, D]."""
+    if _on_cuda("paged_attention", q):
+        return _pa.paged_attention(q.contiguous(), k_heap, v_heap,
+                                   page_table.contiguous(),
+                                   lengths.contiguous())
+    return ref.paged_attention_ref(q, k_heap, v_heap, page_table, lengths)
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -89,5 +101,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["intersect_mask", "segment_intersect_mask",
            "segment_intersect_mask_batched", "scored_intersect_batched",
-           "bulk_append", "ref",
+           "bulk_append", "paged_attention", "ref",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.paged_attention import PAGE
 from repro_torch.kernels.segment_intersect import (SEG_BLOCK,
                                                    decode_packed,
                                                    decode_scores,
@@ -91,3 +92,26 @@ def scored_intersect_batched_ref(a_scored, b_scored, rest, th):
     keep = torch.repeat_interleave(bound > th.to(torch.int32)[:, None],
                                    SEG_BLOCK, dim=-1)
     return torch.where(hit & keep & (bs > 0), a_sc + bs, zeros)
+
+
+def paged_attention_ref(q, k_heap, v_heap, page_table, lengths):
+    """Decode attention through a page table.
+
+    q: [B, Hkv, G, D]; k_heap/v_heap: [Hkv, slots, D];
+    page_table: int32[B, NP] ids of PAGE-token pages (-1 pad);
+    lengths: int32[B].  Returns [B, Hkv, G, D] fp32.
+    """
+    page = PAGE
+    B, Hkv, G, D = q.shape
+    NP = page_table.shape[1]
+    slots = (page_table.long().clamp(min=0)[:, :, None] * page
+             + torch.arange(page, device=q.device)).reshape(B, NP * page)
+    k = k_heap[:, slots].permute(1, 0, 2, 3).float()   # [B, Hkv, T, D]
+    v = v_heap[:, slots].permute(1, 0, 2, 3).float()
+    s = torch.einsum("bhgd,bhtd->bhgt", q.float(), k) * (D ** -0.5)
+    t_pos = torch.arange(NP * page, device=q.device)
+    mask = t_pos[None, None, None, :] < lengths.long()[:, None, None, None]
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)     # all-masked rows -> 0
+    return torch.einsum("bhgt,bhtd->bhgd", p, v)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import convert as tconv
 from repro_torch.core import pointers as tp
 from repro_torch.core import slicepool as tsp
 from repro_torch.core import recovery as trec
@@ -24,6 +25,10 @@ from repro_torch.core.lifecycle import LifecycleEngine
 from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
 from repro_torch.kernels.segment_intersect import decode_packed
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as tT
+from repro_torch.paged import kv_cache as tkv
+from repro_torch.paged import serve_model as tsm
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -50,7 +55,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_guard_sees_every_port_module():
     names = {p.name for p in PORT_FILES}
     for must in ("lifecycle.py", "slicepool.py", "qexec.py", "ops.py",
-                 "segment_intersect.py", "recovery.py", "chip_smoke.py"):
+                 "segment_intersect.py", "recovery.py", "chip_smoke.py",
+                 "paged_attention.py", "kv_cache.py", "serve_model.py",
+                 "serve.py", "transformer.py", "layers.py", "registry.py"):
         assert must in names
 
 
@@ -59,8 +66,14 @@ def test_entry_points_default_to_cuda():
     methods run where the engine's tensors are."""
     for fn in (LifecycleEngine.__init__, ActiveSegment, SegmentSet,
                tsp.init_state, tsp.make_bulk_ingest_fn, decode_packed,
-               FrozenStack, trec.restore, trec.recover):
+               FrozenStack, trec.restore, trec.recover,
+               tkv.init_kv_state, tkv.make_append_fn, tkv.make_page_table_fn,
+               tkv.make_tail_addr_fn, tsm.make_server, tT.init_lm,
+               tT.init_decode_cache, tserve.serve, tconv.lm_params_from_numpy,
+               tconv.kv_state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert 'add_argument("--device", default="cuda")' in \
+        inspect.getsource(tserve.main)
     for name in ("scored_topk", "scored_topk_batch", "scored_full",
                  "scored_full_batch", "dispatch"):
         assert "device" not in inspect.signature(
@@ -156,3 +169,34 @@ def test_scored_kernel_matches_plain_version_on_the_card():
         torch.cuda.synchronize()
         assert torch.equal(got, ref.scored_intersect_batched_ref(
             a, b, rest, th))
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_matches_plain_version_on_the_card():
+    """The paged-attention CUDA kernel against its plain version: fp32
+    and bf16 heaps, D from 8 to 256 (shared memory past 48 KB), lengths
+    at page edges, 0, and longer than the table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(2)
+    for (B, Hkv, G, D), dt in (((3, 2, 4, 8), torch.float32),
+                               ((5, 4, 8, 64), torch.bfloat16),
+                               ((2, 1, 8, 256), torch.float32),
+                               ((4, 2, 2, 128), torch.bfloat16)):
+        NP, pages = 3, 40
+        table = torch.as_tensor(
+            rng.permutation(pages)[:B * NP].reshape(B, NP), dtype=torch.int32)
+        table[0, 1:] = -1
+        lens = torch.as_tensor([64, 0, 65, 3 * 64 + 7, 1][:B],
+                               dtype=torch.int32)
+        q = torch.randn(B, Hkv, G, D).to(dt)
+        kh = torch.randn(Hkv, pages * 64, D).to(dt)
+        vh = torch.randn(Hkv, pages * 64, D).to(dt)
+        args = [t.cuda() for t in (q, kh, vh, table, lens)]
+        got = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        want = ref.paged_attention_ref(*args)
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-4
+        assert not got[1].any()
