@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port (the streaming index and the paged-KV
-decoder server) on one GPU.
+"""Drive the PyTorch/CUDA port (the streaming index, the paged-KV
+decoder server and recsys serving) on one GPU.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,25 @@ Phases, in order (any failure raises and exits non-zero):
      bf16, with the kernel held against its plain version again on the
      final serving state.
 
-``--paged-only`` runs phases 1 and 5 alone (a short rehearsal).
+  6. recsys serving through the ``embedding_bag`` kernel (every table
+     read of the forwards is one launch), random weights from a seed:
+     DCN-v2 exactly as published (fp32, a 2.01 GiB table) at serve_p99
+     (B = 512), serve_bulk (B = 262,144) and retrieval_cand (1 user, 10**6
+     candidates); xDeepFM and DIEN as published at serve_p99; DLRM-MLPerf
+     at its published widths with a bf16 table (44.8 GiB; cut: the fp32
+     table does not fit one card) at serve_p99.  Checks: (a) the kernel
+     against its plain version on every call of each forward (single-row
+     bags bit for bit), (b) on synthetic bags (lengths 0-64, empty, N = 0,
+     D 1/10/16/18/128, fp32 and bf16, ids out of range), (c) each output
+     against the same forward with plain lookups, (d) the launch count;
+     the four reduced configs on the card against the CPU.  Reports ms per
+     batch, samples/s, a traced batch's idle share and top ops, peak
+     memory, and the kernel against its bound, its plain version and
+     ``F.embedding_bag`` at the DCN-v2 serve_bulk and DLRM serve_p99
+     lookups.
+
+``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
+and 6 (short rehearsals).
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -47,7 +65,9 @@ and the port (``src/repro_torch``); it needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -63,6 +83,7 @@ sys.path.insert(0, _SRC)
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import analytical  # noqa: E402
+from repro_torch.core import convert as cconv  # noqa: E402
 from repro_torch.core import pointers  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
 from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
@@ -74,6 +95,7 @@ from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
+from repro_torch.train import steps as rsteps  # noqa: E402
 from repro_torch.kernels.segment_intersect import (  # noqa: E402
     SCORE_MAX, SEG_BLOCK, attach_scores, decode_packed, decode_scores,
     decode_stacked, pack_docids, stack_packed, stack_scored)
@@ -90,6 +112,7 @@ REPLACES = {
     "scored_intersect_batched":
         "src/repro/kernels/segment_intersect.py:753",
     "paged_attention": "src/repro/kernels/paged_attention.py:92",
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:61",
 }
 SOURCES = {
     "bulk_append": "src/repro_torch/csrc/bulk_append.cu",
@@ -99,6 +122,7 @@ SOURCES = {
     "segment_intersect_mask": "src/repro_torch/csrc/segment_intersect.cu",
     "scored_intersect_batched": "src/repro_torch/csrc/scored_intersect.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
 }
 SCORED_K = 10                # the scored top-k route's k
 
@@ -566,37 +590,63 @@ def run_queries(eng, queries, pairs, q_rows: int):
     return out
 
 
+def device_profile(fn, warm: bool = False) -> dict:
+    """One traced call of ``fn`` under the profiler: wall time (host
+    clock around the synchronised call), device-busy time (the sum of
+    the device's kernel and copy durations: one stream, so they do not
+    overlap), the idle share, the device event count and the top device
+    ops by time (name, ms, count).  With ``warm``, ``fn`` first runs once
+    more inside the session and only device events that start after the
+    traced call's start count: late in this script (phase 6, after the
+    sessions of phases 3 and 5) a session was seen to drop its first 21
+    device events, which the first call absorbs."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "chip_smoke.traced_call"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+        with record_function(mark):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == mark)
+    # device-side events only (kernels and copies; not the marker's own
+    # device range): the CPU-side operator events carry their kernels'
+    # time too
+    per = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name != mark and (not warm or e.time_range.start >= start):
+            t, c = per.get(e.name, (0.0, 0))
+            per[e.name] = (t + e.device_time_total / 1e3, c + 1)
+    busy = sum(t for t, _ in per.values())
+    top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
+                 key=lambda x: -x[1])[:6]
+    return dict(out=out, wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                events=sum(c for _, c in per.values()), top=top)
+
+
+def top_ops(prof: dict, digits: int = 1) -> str:
+    return "; ".join(f"{k} {t:.{digits}f} ms x{c}" for k, t, c in prof["top"])
+
+
 def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
-    """One traced ingest batch and one traced query batch of each kind:
-    wall time (host clock around a synchronised call), device-busy time
-    (the sum of the device's kernel and copy durations: one stream, so
-    they do not overlap) and the top device kernels by time.  Runs after
-    the measured main path, whose launch counts it leaves alone."""
-    from torch.profiler import ProfilerActivity, profile
+    """One traced ingest batch and one traced query batch of each kind
+    (:func:`device_profile`).  Runs after the measured main path, whose
+    launch counts it leaves alone."""
     calls = [("ingest", lambda: eng.ingest(docs))] + [
         (kind, lambda c=call, b=batch: c(b[:q_rows])) for kind, batch, call
         in query_calls(eng, queries, pairs)]
     for name, fn in calls:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels and copies): the CPU-side
-        # operator events carry their kernels' time too
-        per = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                t, c = per.get(e.name, (0.0, 0))
-                per[e.name] = (t + e.device_time_total / 1e3, c + 1)
-        busy = sum(t for t, _ in per.values())
-        top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
-                     key=lambda x: -x[1])[:6]
-        log(f"profile {name}: wall {wall:.1f} ms, device busy {busy:.1f} "
-            f"ms ({100 * (1 - busy / wall):.0f}% idle); top: "
-            + "; ".join(f"{k} {t:.1f} ms x{c}" for k, t, c in top))
+        p = device_profile(fn)
+        log(f"profile {name}: wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['busy_ms']:.1f} ms ({100 * p['idle']:.0f}% idle); top: "
+            + top_ops(p))
 
 
 def oracle_answers(bf: BruteForce, queries, pairs):
@@ -913,33 +963,17 @@ def paged_vs_dense(cfg, params, n_seqs: int, steps: int, seed: int):
 def traced_decode_step(server, params, state) -> dict:
     """One decode step of every slot under the profiler: wall time and
     device-busy time (kernels and copies on the one stream)."""
-    from torch.profiler import ProfilerActivity, profile
     dev = server.device
     ids = torch.arange(server.kv_cfg.max_seqs, device=dev)
     tok = torch.ones_like(ids)
-    sm.decode_step(server, params, state, ids, tok)          # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, logits, _ = sm.decode_step(server, params, state, ids, tok)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    if not torch.isfinite(logits).all():
+    p = device_profile(lambda: sm.decode_step(server, params, state, ids,
+                                              tok), warm=True)
+    if not torch.isfinite(p["out"][1]).all():
         raise AssertionError("traced decode step: non-finite logits")
-    per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t, c = per.get(e.name, (0.0, 0))
-            per[e.name] = (t + e.device_time_total / 1e3, c + 1)
-    busy = sum(t for t, _ in per.values())
-    top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
-                 key=lambda x: -x[1])[:6]
-    log(f"profile paged decode step (B={len(ids)}): wall {wall:.2f} ms, "
-        f"device busy {busy:.2f} ms ({100 * (1 - busy / wall):.0f}% "
-        f"idle), {sum(c for _, c in per.values())} device events; top: "
-        + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in top))
-    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall)
+    log(f"profile paged decode step (B={len(ids)}): wall {p['wall_ms']:.2f} "
+        f"ms, device busy {p['busy_ms']:.2f} ms ({100 * p['idle']:.0f}% "
+        f"idle), {p['events']} device events; top: " + top_ops(p, 3))
+    return dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"], idle=p["idle"])
 
 
 def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
@@ -1070,6 +1104,362 @@ def phase_index(segment_log2: int):
     return table
 
 
+# ---------------------------------------------------------------------------
+# phase 6: recsys serving (DCN-v2 at full width, xDeepFM, DIEN, DLRM)
+# ---------------------------------------------------------------------------
+# (arch, shapes, config changes): DCN-v2 exactly as published; xDeepFM
+# and DIEN at serve_p99 only (their serve_bulk is a cut: xDeepFM's CIN
+# tensor [262144, 200, 39, 10] alone is 82 GB); DLRM-MLPerf at its
+# published widths with a bf16 table (the fp32 table, 89.5 GiB, does not
+# fit one card: a cut)
+RECSYS_CELLS = (
+    ("dcn-v2", ("serve_p99", "serve_bulk", "retrieval_cand"), {}),
+    ("xdeepfm", ("serve_p99",), {}),
+    ("dien", ("serve_p99",), {}),
+    ("dlrm-mlperf", ("serve_p99",), {"param_dtype": "bfloat16"}),
+)
+# embedding_bag calls per forward (models/recsys.py): DLRM and DCN-v2 one
+# lookup; xDeepFM the lookup and the linear term's sum-bags; DIEN the
+# target lookup, the history lookup and the history mean-bags; a
+# retrieval step the user's mean-bag and the candidates
+LOOKUPS = {"dot": 1, "cross": 1, "cin": 2, "augru": 3, "retrieval": 2}
+BAG_ERR = 1e-5        # multi-row bags vs plain: max |diff| / max |plain|
+FWD_ERR = 1e-4        # logits, kernel vs plain lookups: max |diff| /
+                      # max(1e-3, max |logit|) (only the multi-row bags
+                      # sum in another order)
+SMALL_TOL = dict(rtol=1e-4, atol=1e-6)   # reduced configs, card vs CPU
+TIMED, WARM = 10, 2   # batches per cell: 2 warm-ups, then 10 timed
+
+
+@contextlib.contextmanager
+def bags_through(fn):
+    """Route every ``ops.embedding_bag`` call of the models to ``fn`` for
+    the duration (the plain-lookup twin and the input capture; never
+    used by the package itself)."""
+    real = ops.embedding_bag
+    ops.embedding_bag = fn
+    try:
+        yield real
+    finally:
+        ops.embedding_bag = real
+
+
+def recsys_batch(cfg, spec, rng, dev="cuda") -> dict:
+    """Uniform ids per field, normal dense features, DIEN histories with
+    hist_len in [1, T) (tests/test_arch_smoke.py's batches); a retrieval
+    batch is one user and uniform candidate rows of the table."""
+    if spec.kind == "retrieval":
+        n = spec.extra("n_candidates")
+        user = np.stack([rng.integers(0, v, 1) for v in cfg.vocab_sizes], 1)
+        return {"user_sparse": torch.as_tensor(user, dtype=torch.int32,
+                                               device=dev),
+                "cand_ids": torch.as_tensor(
+                    rng.integers(0, cfg.total_rows, n), dtype=torch.int32,
+                    device=dev)}
+    B = spec.global_batch
+    sparse = np.stack([rng.integers(0, v, B, dtype=np.int32)
+                       for v in cfg.vocab_sizes], 1)
+    batch = {"sparse": torch.as_tensor(sparse, device=dev)}
+    if cfg.n_dense:
+        batch["dense"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.n_dense), dtype=np.float32),
+            device=dev)
+    if cfg.interaction == "augru":
+        T = cfg.seq_len
+        hist = np.stack([rng.integers(0, cfg.vocab_sizes[0], (B, T)),
+                         rng.integers(0, cfg.vocab_sizes[1], (B, T))], -1)
+        batch["hist"] = torch.as_tensor(hist, dtype=torch.int32, device=dev)
+        batch["hist_len"] = torch.as_tensor(rng.integers(1, T, B),
+                                            dtype=torch.int32, device=dev)
+    return batch
+
+
+def serve_call(cfg, spec, params, batch, dev="cuda"):
+    """(the cell's entry-point call, embedding_bag calls per call)."""
+    if spec.kind == "retrieval":
+        step = rsteps.make_recsys_retrieval_step(cfg, dev)
+        return (lambda: step(params, batch["user_sparse"],
+                             batch["cand_ids"]), LOOKUPS["retrieval"])
+    fwd = rsteps.make_recsys_forward(cfg, dev)
+    return lambda: fwd(params, batch), LOOKUPS[cfg.interaction]
+
+
+def check_bag(name, got, table, idx, off, mode) -> float:
+    """The kernel's output against its plain version on one call's
+    inputs: bags of one row bit-identical (to the plain version and to
+    the table's rows), the others within ``BAG_ERR`` (normwise
+    relative).  Returns the max absolute difference."""
+    want = ref.embedding_bag_ref(table, idx, off, mode)
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {tuple(want.shape)}")
+    lens = (off[1:] - off[:-1]).long()
+    one = lens == 1
+    if not torch.equal(got[one], want[one]):
+        raise AssertionError(f"{name}: a single-row bag differs from the "
+                             f"plain version")
+    if bool(one.all()) and idx.numel():
+        rows = table[idx.long().clamp(0, table.shape[0] - 1)].float()
+        if not torch.equal(got, rows):
+            raise AssertionError(f"{name}: single-row bags are not the "
+                                 f"table's rows bit for bit")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if not torch.isfinite(got).all() or err > BAG_ERR * max(scale, 1e-30):
+        raise AssertionError(f"{name}: max abs err {err} against the plain "
+                             f"version (limit {BAG_ERR} x {scale})")
+    return err
+
+
+def synthetic_bags(seed: int) -> float:
+    """Check (b): the kernel against its plain version on synthetic CSR
+    bags: lengths 0-64, all-empty bags and N = 0, sum and mean, fp32 and
+    bf16 tables at D in {1, 10, 16, 18, 128}, ids out of range (clip)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    err, cases = 0.0, 0
+    for D in (1, 10, 16, 18, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            R = 100_000
+            table = torch.randn(R, D, device=dev).to(dt)
+            lens_sets = (np.r_[0, 64, rng.integers(0, 65, 4000)],
+                         np.zeros(7, np.int64), np.zeros(0, np.int64),
+                         np.ones(5000, np.int64))
+            for lens in lens_sets:
+                off = np.zeros(len(lens) + 1, np.int32)
+                off[1:] = np.cumsum(lens)
+                idx = torch.as_tensor(rng.integers(-100, R + 100, off[-1]),
+                                      dtype=torch.int32, device=dev)
+                off = torch.as_tensor(off, device=dev)
+                for mode in ("sum", "mean"):
+                    got = ops.embedding_bag(table, idx, off, mode)
+                    torch.cuda.synchronize()
+                    err = max(err, check_bag(
+                        f"synthetic D={D} {dt} {len(lens)} bags {mode}",
+                        got, table, idx, off, mode))
+                    cases += 1
+    log(f"embedding_bag vs plain on synthetic bags: {cases} cases (D 1, "
+        f"10, 16, 18, 128; fp32 and bf16; lengths 0-64, all-empty, N = 0, "
+        f"single-row; ids out of range), max abs err {err:.3g}")
+    return err
+
+
+def small_configs_against_cpu(seed: int) -> None:
+    """The four forwards and the retrieval step at ``reduced_config``: on
+    the card (the kernel) against the same weights and batch on the CPU
+    (plain lookups, CPU products), within ``SMALL_TOL``."""
+    for arch, _, _ in RECSYS_CELLS:
+        cfg = registry.reduced_config(arch)
+        entry = registry.get(arch)
+        p_cpu = rsteps.init_params_for(entry, cfg, seed=seed, device="cpu")
+        p_gpu = cconv.recsys_params_from_numpy(
+            cconv.recsys_params_to_numpy(p_cpu), cfg, device="cuda")
+        rng = np.random.default_rng(seed)
+        for shape in ("serve_p99", "retrieval_cand"):
+            spec = dataclasses.replace(registry.get_shape(arch, shape),
+                                       global_batch=64,
+                                       extras=(("n_candidates", 500),))
+            b = recsys_batch(cfg, spec, rng, "cpu")
+            want = serve_call(cfg, spec, p_cpu, b, "cpu")[0]()
+            got = serve_call(cfg, spec, p_gpu,
+                             {k: v.cuda() for k, v in b.items()})[0]()
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       err_msg=f"{arch} {shape}",
+                                       **SMALL_TOL)
+    log(f"reduced configs: the four forwards and retrieval on the card "
+        f"agree with the CPU within {SMALL_TOL}")
+
+
+def _bag_bytes(table, idx, off) -> int:
+    """Bytes the call must move: each distinct (clipped) row once, the
+    indices, the offsets and the fp32 output."""
+    R, D = table.shape
+    rows = torch.unique(idx.long().clamp(0, R - 1)).numel()
+    B = off.numel() - 1
+    return (rows * D * table.element_size() + idx.numel() * 4
+            + off.numel() * 4 + B * D * 4)
+
+
+def cuda_ms_cold(fn, flush, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches, each timed by
+    its own CUDA events after ``flush`` (a buffer larger than the 50 MB
+    L2) is overwritten, so the call finds the table's rows cold as a
+    serving call does."""
+    for _ in range(warmup):
+        fn()
+    spans = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        spans.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
+
+
+def bag_timing(name, call) -> dict:
+    """The kernel, its plain version and the library yardstick
+    (``F.embedding_bag``, include_last_offset; timed only) on one
+    captured call of the path, and the call's byte bound."""
+    table, idx, off, mode = call
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    lib_idx = idx.clamp(0, table.shape[0] - 1)
+    row = dict(
+        ms=cuda_ms_cold(lambda: ops.embedding_bag(table, idx, off, mode),
+                        flush),
+        plain_ms=cuda_ms_cold(
+            lambda: ref.embedding_bag_ref(table, idx, off, mode), flush),
+        library_ms=cuda_ms_cold(lambda: torch.nn.functional.embedding_bag(
+            lib_idx, table, off, mode=mode, include_last_offset=True),
+            flush),
+        bytes=_bag_bytes(table, idx, off))
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    every = (idx.numel() * table.shape[1] * table.element_size()
+             + idx.numel() * 4 + off.numel() * 4
+             + (off.numel() - 1) * table.shape[1] * 4)
+    row["shape"] = (f"{off.numel() - 1} bags, {idx.numel()} ids, table "
+                    f"{tuple(table.shape)} {str(table.dtype)[6:]}")
+    log(f"kernel embedding_bag at {name} ({row['shape']}): kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+        f"(F.embedding_bag) {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bytes']} bytes, distinct rows "
+        f"once; {every / HBM_BYTES_PER_S * 1e3:.4f} ms counting every "
+        f"looked-up row)")
+    return row
+
+
+def recsys_cell(arch, shape, cfg, params, rng) -> dict:
+    """One (config, shape) cell: the counted run (2 warm-ups, 10 timed
+    batches, then a traced session of 2: its warm call and the traced
+    one), then checks (a) and (c) and the launch count."""
+    spec = registry.get_shape(arch, shape)
+    batch = recsys_batch(cfg, spec, rng)
+    call, per_call = serve_call(cfg, spec, params, batch)
+    n_out = (spec.extra("n_candidates") if spec.kind == "retrieval"
+             else spec.global_batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(WARM + TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = device_profile(call, warm=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_calls = WARM + TIMED + 2
+    if counts["embedding_bag"] != n_calls * per_call or \
+            sum(counts.values()) != counts["embedding_bag"]:
+        raise AssertionError(f"{arch} {shape}: launches {counts}, expected "
+                             f"{n_calls * per_call} embedding_bag")
+    for o in (out, prof["out"]):
+        if o.shape != (n_out,) or not torch.isfinite(o).all():
+            raise AssertionError(f"{arch} {shape}: output of shape "
+                                 f"{tuple(o.shape)} (expected {n_out}) or "
+                                 f"not finite")
+
+    # (a) the kernel against its plain version on this path's own calls
+    captured = []
+
+    def capture(table, idx, off, mode="sum"):
+        captured.append((table, idx, off, mode))
+        return real(table, idx, off, mode)
+    with bags_through(capture) as real:
+        got = call()
+    bag_err = 0.0
+    for i, (t, idx, off, mode) in enumerate(captured):
+        bag_err = max(bag_err, check_bag(
+            f"{arch} {shape} call {i}", real(t, idx, off, mode), t, idx,
+            off, mode))
+    # (c) the whole forward against its plain-lookup twin
+    with bags_through(ref.embedding_bag_ref):
+        want = call()
+    fwd_err = float((got - want).abs().max())
+    scale = max(float(want.abs().max()), 1e-3)
+    if fwd_err > FWD_ERR * scale:
+        raise AssertionError(f"{arch} {shape}: output differs from the "
+                             f"plain-lookup twin by {fwd_err} (limit "
+                             f"{FWD_ERR} x {scale})")
+    multi = [i for i, (_, _, off, _) in enumerate(captured)
+             if bool(((off[1:] - off[:-1]) > 1).any())]
+    med = float(np.median(times[WARM:]))
+    log(f"recsys {arch} {shape}: {med:.3f} ms per batch (median of "
+        f"{TIMED}; {', '.join(f'{t:.2f}' for t in times[WARM:])}), "
+        f"{n_out / med * 1e3:.0f} {'candidates' if spec.kind == 'retrieval' else 'samples'}"
+        f"/s; peak device memory {peak / 2**30:.2f} GiB; traced batch "
+        f"wall {prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
+        f"ms ({100 * prof['idle']:.0f}% idle), {prof['events']} device "
+        f"events; top: {top_ops(prof, 3)}")
+    log(f"recsys {arch} {shape} checks: {len(captured)} embedding_bag "
+        f"calls ({len(multi)} with multi-row bags) against the plain "
+        f"version, max abs err {bag_err:.3g}; output vs plain-lookup twin "
+        f"max abs err {fwd_err:.3g} (|out| max {scale:.3g}); launches "
+        f"{counts['embedding_bag']} = {n_calls} x {per_call}")
+    return dict(ms=med, per_s=n_out / med * 1e3, peak_bytes=peak,
+                idle=prof["idle"], wall_traced_ms=prof["wall_ms"],
+                busy_traced_ms=prof["busy_ms"],
+                launches=counts["embedding_bag"], bag_err=bag_err,
+                fwd_err=fwd_err, captured=captured)
+
+
+def phase_recsys(seed: int):
+    """Phase 6; returns the embedding_bag kernel row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"recsys serving: device memory in use at start "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; TF32 off")
+    err = synthetic_bags(seed)
+    small_configs_against_cpu(seed)
+    launches, cells, timing = 0, {}, {}
+    rng = np.random.default_rng(seed)
+    for arch, shapes, change in RECSYS_CELLS:
+        cfg = dataclasses.replace(registry.get(arch).config, **change)
+        t0 = time.perf_counter()
+        params = rsteps.init_params_for(registry.get(arch), cfg, seed=seed,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        tb = params["table"]
+        log(f"recsys {arch}: random {cfg.param_dtype} weights from seed "
+            f"{seed} in {time.perf_counter() - t0:.1f} s; table "
+            f"{tuple(tb.shape)} ({tb.numel() * tb.element_size() / 2**30:.2f}"
+            f" GiB), embed_dim {cfg.embed_dim}, {cfg.n_sparse} fields"
+            + (f", changes {change}" if change else ""))
+        for shape in shapes:
+            r = recsys_cell(arch, shape, cfg, params, rng)
+            launches += r["launches"]
+            err = max(err, r["bag_err"])
+            key = (arch, shape)
+            if key in (("dcn-v2", "serve_bulk"), ("dlrm-mlperf",
+                                                   "serve_p99")):
+                # the one-id-per-field lookup
+                timing[key] = bag_timing(f"{arch} {shape}", r["captured"][0])
+            del r["captured"]
+            cells[f"{arch}/{shape}"] = r
+            torch.cuda.empty_cache()
+        del params, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = timing[("dcn-v2", "serve_bulk")]
+    log("recsys serving: " + json.dumps({
+        "cells": cells,
+        "kernel": {f"{a}/{s}": t for (a, s), t in timing.items()}}))
+    return dict(
+        name="embedding_bag", route="cuda", source=SOURCES["embedding_bag"],
+        replaces=REPLACES["embedding_bag"], launches=launches,
+        path="recsys_serve", max_abs_err=err, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=main["library_ms"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segment-log2", type=int, default=23,
@@ -1077,6 +1467,8 @@ def main(argv=None) -> int:
                          "with it: 2**(N-3) terms)")
     ap.add_argument("--paged-only", action="store_true",
                     help="run only the build and the paged-serving phase")
+    ap.add_argument("--recsys-only", action="store_true",
+                    help="run only the build and the recsys-serving phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1089,20 +1481,25 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {build_s:.1f} s")
 
     table = []
-    if not args.paged_only:
+    if not (args.paged_only or args.recsys_only):
         table = phase_index(args.segment_log2)
-    t0 = time.perf_counter()
-    row, counts, paged_sum = phase_paged(seed=0)
-    table.append(dict(
-        name="paged_attention", route="cuda",
-        source=SOURCES["paged_attention"],
-        replaces=REPLACES["paged_attention"],
-        launches=counts["paged_attention"], path="paged_serve",
-        max_abs_err=row["max_abs_err"], ms=row["ms"],
-        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by="bytes", library_ms=row["library_ms"]))
-    log("paged serving: " + json.dumps(paged_sum))
-    log(f"paged phase {time.perf_counter() - t0:.1f} s")
+    if not args.recsys_only:
+        t0 = time.perf_counter()
+        row, counts, paged_sum = phase_paged(seed=0)
+        table.append(dict(
+            name="paged_attention", route="cuda",
+            source=SOURCES["paged_attention"],
+            replaces=REPLACES["paged_attention"],
+            launches=counts["paged_attention"], path="paged_serve",
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by="bytes", library_ms=row["library_ms"]))
+        log("paged serving: " + json.dumps(paged_sum))
+        log(f"paged phase {time.perf_counter() - t0:.1f} s")
+    if not args.paged_only:
+        t0 = time.perf_counter()
+        table.append(phase_recsys(seed=0))
+        log(f"recsys phase {time.perf_counter() - t0:.1f} s")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     print(card, flush=True)

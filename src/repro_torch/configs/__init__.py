@@ -1,2 +1,2 @@
-"""Model configurations of the port (the LM part of the reference's
-``configs`` package)."""
+"""Model configurations of the port (the LM and recsys parts of the
+reference's ``configs`` package)."""

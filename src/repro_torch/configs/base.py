@@ -1,12 +1,27 @@
-"""LM configuration dataclass (a copy of the reference's ``LMConfig``).
+"""Config dataclasses and input-shape specs (copies of the reference's
+``ShapeSpec``, ``LMConfig``, ``RecsysConfig``, ``LM_SHAPES`` and
+``RECSYS_SHAPES``).
 
-The GNN and recsys configs and ``ShapeSpec`` are not ported yet
-(ROADMAP.md Queue 1 item 12).
+The GNN config and its shapes are not ported yet (ROADMAP.md Queue 1
+item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell (arch x shape grid)."""
+    name: str
+    kind: str                    # train | prefill | decode | serve | retrieval
+    seq_len: int = 0
+    global_batch: int = 0
+    extras: tuple = ()           # family-specific (sorted key/value pairs)
+
+    def extra(self, key, default=None):
+        return dict(self.extras).get(key, default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +87,43 @@ class LMConfig:
         act = attn + (self.moe_top_k + self.n_shared_experts) * 3 * d * self.moe_d_ff \
             + d * self.n_experts
         return L * act + 2 * self.vocab * d
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    interaction: str                 # dot | cross | cin | augru
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    vocab_sizes: Tuple[int, ...]     # one per sparse field
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    n_cross_layers: int = 0
+    cin_layers: Tuple[int, ...] = ()
+    # DIEN
+    seq_len: int = 0
+    gru_dim: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    unroll_seq: bool = False         # the reference's scan unroll knob
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.vocab_sizes)
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+    ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+)
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", global_batch=65_536),
+    ShapeSpec("serve_p99", "serve", global_batch=512),
+    ShapeSpec("serve_bulk", "serve", global_batch=262_144),
+    ShapeSpec("retrieval_cand", "retrieval", global_batch=1,
+              extras=(("n_candidates", 1_000_000),)),
+)

@@ -1,48 +1,97 @@
-"""Architecture registry, LM part: ``--arch`` ids -> config.
+"""Architecture registry: ``--arch`` ids -> config, shapes, input specs
+(the reference's ``configs/registry.py``).
 
-The reference's registry also maps the GNN and recsys archs and builds
-``input_specs``/dry-run overrides from JAX stand-ins; those wait for
-ROADMAP.md Queue 1 item 12, and asking for such an arch here raises.
+``input_specs(arch, shape)`` returns ``(shape, torch.dtype)`` pairs where
+the reference returns ``jax.ShapeDtypeStruct`` stand-ins.  SchNet (the
+GNN family) and the reference's dry-run overrides wait for ROADMAP.md
+Queue 1 item 12; asking for SchNet raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple, Union
 
-from repro_torch.configs import lm_archs
-from repro_torch.configs.base import LMConfig
+import torch
+
+from repro_torch.configs import lm_archs, other_archs
+from repro_torch.configs.base import (LM_SHAPES, RECSYS_SHAPES, LMConfig,
+                                      RecsysConfig, ShapeSpec)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
-    family: str                      # lm (gnn | recsys not ported yet)
-    config: LMConfig
+    family: str                      # lm | recsys (gnn not ported yet)
+    config: Union[LMConfig, RecsysConfig]
+    shapes: Tuple[ShapeSpec, ...]
 
 
 ARCHS: Dict[str, ArchEntry] = {
-    "tinyllama-1.1b": ArchEntry("lm", lm_archs.TINYLLAMA_1B),
-    "gemma3-12b": ArchEntry("lm", lm_archs.GEMMA3_12B),
-    "deepseek-coder-33b": ArchEntry("lm", lm_archs.DEEPSEEK_CODER_33B),
-    "qwen2-moe-a2.7b": ArchEntry("lm", lm_archs.QWEN2_MOE_A2_7B),
-    "grok-1-314b": ArchEntry("lm", lm_archs.GROK_1_314B),
+    "tinyllama-1.1b": ArchEntry("lm", lm_archs.TINYLLAMA_1B, LM_SHAPES),
+    "gemma3-12b": ArchEntry("lm", lm_archs.GEMMA3_12B, LM_SHAPES),
+    "deepseek-coder-33b": ArchEntry("lm", lm_archs.DEEPSEEK_CODER_33B,
+                                    LM_SHAPES),
+    "qwen2-moe-a2.7b": ArchEntry("lm", lm_archs.QWEN2_MOE_A2_7B, LM_SHAPES),
+    "grok-1-314b": ArchEntry("lm", lm_archs.GROK_1_314B, LM_SHAPES),
+    "xdeepfm": ArchEntry("recsys", other_archs.XDEEPFM, RECSYS_SHAPES),
+    "dcn-v2": ArchEntry("recsys", other_archs.DCN_V2, RECSYS_SHAPES),
+    "dlrm-mlperf": ArchEntry("recsys", other_archs.DLRM_MLPERF,
+                             RECSYS_SHAPES),
+    "dien": ArchEntry("recsys", other_archs.DIEN, RECSYS_SHAPES),
 }
-_NOT_PORTED = ("schnet", "xdeepfm", "dcn-v2", "dlrm-mlperf", "dien")
+_NOT_PORTED = ("schnet",)
 
 
 def get(arch: str) -> ArchEntry:
     if arch in _NOT_PORTED:
         raise NotImplementedError(
-            f"{arch}: the GNN/recsys configs are not ported yet (ROADMAP.md "
-            f"Queue 1 item 12)")
+            f"{arch}: the GNN config is not ported yet (ROADMAP.md Queue 1 "
+            f"item 12)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]
 
 
-def reduced_config(arch: str) -> LMConfig:
+def get_shape(arch: str, shape: str) -> ShapeSpec:
+    for s in get(arch).shapes:
+        if s.name == shape:
+            return s
+    raise KeyError(f"unknown shape {shape!r} for {arch}")
+
+
+def input_specs(arch: str, shape: str) -> dict:
+    """``(shape, dtype)`` of each of the step function's data arguments."""
+    entry = get(arch)
+    spec = get_shape(arch, shape)
+    B = spec.global_batch
+    if entry.family == "lm":
+        if spec.kind in ("train", "prefill"):
+            return {"tokens": ((B, spec.seq_len), torch.int32)}
+        # decode: one new token; the KV cache is carried state, not input
+        return {"token": ((B, 1), torch.int32), "pos": ((), torch.int32)}
+    cfg: RecsysConfig = entry.config
+    if spec.kind == "retrieval":
+        return {"user_sparse": ((1, cfg.n_sparse), torch.int32),
+                "cand_ids": ((spec.extra("n_candidates"),), torch.int32)}
+    out = {"sparse": ((B, cfg.n_sparse), torch.int32)}
+    if cfg.n_dense:
+        out["dense"] = ((B, cfg.n_dense), torch.float32)
+    if cfg.interaction == "augru":
+        out["hist"] = ((B, cfg.seq_len, 2), torch.int32)
+        out["hist_len"] = ((B,), torch.int32)
+    if spec.kind == "train":
+        out["label"] = ((B,), torch.float32)
+    return out
+
+
+def reduced_config(arch: str):
     """Tiny same-family config for CPU smoke tests (the reference's
-    ``reduced_config``, LM branch)."""
-    cfg = get(arch).config
+    ``reduced_config``, LM and recsys branches)."""
+    entry = get(arch)
+    cfg = entry.config
+    if entry.family == "recsys":
+        # shrink tables
+        small_vocab = tuple(min(v, 1000) for v in cfg.vocab_sizes)
+        return dataclasses.replace(cfg, vocab_sizes=small_vocab)
     kw = dict(
         name=cfg.name + "-smoke", n_layers=2,
         d_model=64, n_heads=4, n_kv_heads=max(1, cfg.n_kv_heads // 8),

@@ -10,7 +10,8 @@ engine would — and :func:`dump_lifecycle` reads one back out.
 
 The LM side carries a reference ``init_lm`` parameter tree (nested
 dicts of numpy arrays) and a ``PagedKVState`` (uint32 ``link``/``tail``
-as int64 here) across the same way.
+as int64 here) across the same way, and the recsys side a reference
+recsys parameter tree (dicts and lists of numpy arrays).
 """
 from __future__ import annotations
 
@@ -117,29 +118,40 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(tree, cfg, device="cuda") -> dict:
-    """The port's parameters from a reference ``init_lm`` tree of numpy
-    arrays (same names, stacked ``[L, ...]`` layers), in the config's
-    ``param_dtype``."""
+def _map_tree(fn, node):
+    """``fn`` on every array leaf of a tree of dicts and lists."""
+    if isinstance(node, Mapping):
+        return {k: _map_tree(fn, v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_map_tree(fn, v) for v in node]
+    return fn(node)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """numpy has no bfloat16, so a bf16 leaf comes back as float32
+    (exactly)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def params_from_numpy(tree, cfg, device="cuda") -> dict:
+    """The port's parameters from a reference init tree of numpy arrays
+    (``init_lm``'s dicts with stacked ``[L, ...]`` layers, or a recsys
+    ``init_*``'s dicts holding lists of layer dicts such as
+    ``bot``/``top``, ``cross``, ``cin``): the same names and nesting, in
+    the config's ``param_dtype``; bf16 leaves travel as their bit
+    pattern."""
     dt = getattr(torch, cfg.param_dtype)
-
-    def conv(node):
-        if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, device, dt)
-    return conv(tree)
+    return _map_tree(lambda a: _tensor(a, device, dt), tree)
 
 
-def lm_params_to_numpy(params) -> dict:
-    """The inverse of :func:`lm_params_from_numpy`.  numpy has no
-    bfloat16, so bf16 leaves come back as float32 (exactly)."""
-    def conv(node):
-        if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
-        if node.dtype == torch.bfloat16:
-            node = node.float()
-        return node.cpu().numpy()
-    return conv(params)
+def params_to_numpy(params) -> dict:
+    """The inverse of :func:`params_from_numpy` (bf16 leaves as
+    float32)."""
+    return _map_tree(_leaf_to_numpy, params)
+
+
+lm_params_from_numpy = recsys_params_from_numpy = params_from_numpy
+lm_params_to_numpy = recsys_params_to_numpy = params_to_numpy
 
 
 def kv_state_from_numpy(leaves: Mapping[str, np.ndarray],
@@ -164,6 +176,5 @@ def kv_state_to_numpy(state: PagedKVState) -> Dict[str, np.ndarray]:
     out = {f: getattr(state, f).cpu().numpy().astype(dt)
            for f, dt in KV_DTYPES.items()}
     for f in ("k_heap", "v_heap"):
-        h = getattr(state, f)
-        out[f] = (h.float() if h.dtype == torch.bfloat16 else h).cpu().numpy()
+        out[f] = _leaf_to_numpy(getattr(state, f))
     return out

@@ -41,6 +41,8 @@ _SIGNATURES = {
                                 _P, _P, _P, _I64, _P],
     "paged_attention_launch": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64,
                                _I64, _I64, _I64, _I64, _I64, _P],
+    "embedding_bag_launch": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64,
+                             _I64, _P, _P],
 }
 
 _state = {"lib": None, "build_s": None}

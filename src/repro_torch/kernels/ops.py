@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import bulk_append as _ba
+from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import postings_intersect as _pi
 from repro_torch.kernels import ref
@@ -24,6 +25,7 @@ KERNELS = {
     "segment_intersect_mask": _si.segment_intersect_mask,
     "scored_intersect_batched": _si.scored_intersect_batched,
     "paged_attention": _pa.paged_attention,
+    "embedding_bag": _eb.embedding_bag,
 }
 
 
@@ -90,6 +92,16 @@ def paged_attention(q, k_heap, v_heap, page_table, lengths):
     return ref.paged_attention_ref(q, k_heap, v_heap, page_table, lengths)
 
 
+def embedding_bag(table, indices, offsets, mode: str = "sum"):
+    """CSR bags of ``table`` rows (int32 ``indices``, int32[B+1]
+    ``offsets``; ids clipped into the table): fp32 [B, D] sums, or means
+    with ``mode="mean"``."""
+    if _on_cuda("embedding_bag", table):
+        return _eb.embedding_bag(table, indices.contiguous(),
+                                 offsets.contiguous(), mode)
+    return ref.embedding_bag_ref(table, indices, offsets, mode)
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -101,5 +113,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["intersect_mask", "segment_intersect_mask",
            "segment_intersect_mask_batched", "scored_intersect_batched",
-           "bulk_append", "paged_attention", "ref",
+           "bulk_append", "paged_attention", "embedding_bag", "ref",
            "launch_counts", "reset_launch_counts", "KERNELS"]

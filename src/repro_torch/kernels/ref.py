@@ -115,3 +115,38 @@ def paged_attention_ref(q, k_heap, v_heap, page_table, lengths):
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)     # all-masked rows -> 0
     return torch.einsum("bhgt,bhtd->bhgd", p, v)
+
+
+def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
+    """CSR embedding bag: ``out[b]`` sums (``mode="mean"``: averages,
+    an empty bag dividing by 1) the table rows
+    ``indices[offsets[b]:offsets[b+1]]``.
+
+    table: [R, D] (fp32 or bf16); indices, offsets: int32[N], int32[B+1]
+    -> fp32 [B, D].  This mirrors the Pallas kernel's contract, not the
+    JAX oracle's dtype: rows are widened to fp32 and summed in fp32, and
+    the result is fp32, where the oracle sums in the table's dtype and
+    returns it (the two agree for an fp32 table).  Indices clip into
+    ``[0, R-1]`` as the oracle's ``mode="clip"`` does (the TPU kernel
+    would read out of range).  Positions outside ``[offsets[0],
+    offsets[B])`` belong to no bag.  A single-row bag equals
+    ``table[idx].float()`` exactly.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', "
+                         f"got {mode!r}")
+    B = offsets.shape[0] - 1
+    R, D = table.shape
+    dev = table.device
+    pos = torch.arange(indices.shape[0], device=dev)
+    ends = offsets[1:].long()
+    seg = torch.searchsorted(ends, pos, right=True)
+    seg = torch.where(pos >= offsets[0].long(), seg, B)   # B: no bag
+    rows = table[indices.long().clamp(0, R - 1)].float()
+    out = torch.zeros((B + 1, D), dtype=torch.float32, device=dev)
+    out.index_add_(0, seg, rows)
+    out = out[:B]
+    if mode == "mean":
+        cnt = (ends - offsets[:-1].long()).clamp(min=1)
+        out = out / cnt.float()[:, None]
+    return out

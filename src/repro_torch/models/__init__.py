@@ -1,1 +1,2 @@
-"""Decoder models of the port: layers and the dense transformer."""
+"""Models of the port: the decoder's layers and dense transformer, and
+the recsys models."""

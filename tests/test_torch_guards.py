@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry as treg
 from repro_torch.core import convert as tconv
 from repro_torch.core import pointers as tp
 from repro_torch.core import slicepool as tsp
@@ -24,11 +25,14 @@ from repro_torch.core.index import ActiveSegment
 from repro_torch.core.lifecycle import LifecycleEngine
 from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
+from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels.segment_intersect import decode_packed
 from repro_torch.launch import serve as tserve
+from repro_torch.models import recsys as tR
 from repro_torch.models import transformer as tT
 from repro_torch.paged import kv_cache as tkv
 from repro_torch.paged import serve_model as tsm
+from repro_torch.train import steps as tS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -57,7 +61,9 @@ def test_guard_sees_every_port_module():
     for must in ("lifecycle.py", "slicepool.py", "qexec.py", "ops.py",
                  "segment_intersect.py", "recovery.py", "chip_smoke.py",
                  "paged_attention.py", "kv_cache.py", "serve_model.py",
-                 "serve.py", "transformer.py", "layers.py", "registry.py"):
+                 "serve.py", "transformer.py", "layers.py", "registry.py",
+                 "embedding_bag.py", "recsys.py", "steps.py",
+                 "other_archs.py", "base.py"):
         assert must in names
 
 
@@ -70,7 +76,9 @@ def test_entry_points_default_to_cuda():
                tkv.init_kv_state, tkv.make_append_fn, tkv.make_page_table_fn,
                tkv.make_tail_addr_fn, tsm.make_server, tT.init_lm,
                tT.init_decode_cache, tserve.serve, tconv.lm_params_from_numpy,
-               tconv.kv_state_from_numpy):
+               tconv.kv_state_from_numpy, tS.make_recsys_forward,
+               tS.make_recsys_retrieval_step, tS.init_params_for,
+               tR.field_offsets, tconv.recsys_params_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
@@ -96,6 +104,34 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     if not torch.backends.cuda.is_built():
         with pytest.raises((AssertionError, RuntimeError)):
             ActiveSegment(layout, 4)
+
+
+def test_recsys_entry_points_never_fall_back_to_the_cpu():
+    """Asked for the card (the default) without CUDA, the recsys entry
+    points raise; the kernel's wrapper raises on CPU tensors rather than
+    run the plain version, and on a wrong dtype or a non-contiguous
+    table; the train steps raise naming their ROADMAP item."""
+    cfg = treg.reduced_config("dcn-v2")
+    entry = treg.get("dcn-v2")
+    if not torch.backends.cuda.is_built():
+        for call in (lambda: tS.init_params_for(entry, cfg),
+                     lambda: tS.make_recsys_forward(cfg),
+                     lambda: tS.make_recsys_retrieval_step(cfg)):
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+    table = torch.zeros(8, 4)
+    idx = torch.zeros(3, dtype=torch.int32)
+    off = torch.tensor([0, 1, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        teb.embedding_bag(table, idx, off)
+    with pytest.raises(ValueError, match="CUDA|contiguous"):
+        teb.embedding_bag(table.t(), idx, off)
+    for call in (tS.make_lm_train_step, tS.make_gnn_train_step,
+                 tS.make_recsys_train_step):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+            call(cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        treg.get("schnet")
 
 
 @pytest.mark.cuda
@@ -200,3 +236,37 @@ def test_paged_attention_kernel_matches_plain_version_on_the_card():
         assert got.dtype == torch.float32
         assert float((got - want).abs().max()) <= 1e-4
         assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_matches_plain_version_on_the_card():
+    """The embedding-bag CUDA kernel against its plain version: fp32 and
+    bf16 tables at the recsys widths D in {1, 10, 16, 18, 128}, bags of
+    0 to 64 rows, all-empty bags, N = 0, ids out of range (clipped), sum
+    and mean; bags of one row bit-identical to the table's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(3)
+    for D in (1, 10, 16, 18, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            R = 1000
+            table = torch.randn(R, D).to(dt).cuda()
+            for lens in (rng.integers(0, 65, 300), np.zeros(7, np.int64),
+                         np.zeros(0, np.int64), np.ones(500, np.int64)):
+                off = np.zeros(len(lens) + 1, np.int32)
+                off[1:] = np.cumsum(lens)
+                idx = torch.as_tensor(rng.integers(-50, R + 50, off[-1]),
+                                      dtype=torch.int32).cuda()
+                off = torch.as_tensor(off).cuda()
+                for mode in ("sum", "mean"):
+                    got = ops.embedding_bag(table, idx, off, mode)
+                    torch.cuda.synchronize()
+                    want = ref.embedding_bag_ref(table, idx, off, mode)
+                    assert got.dtype == torch.float32
+                    assert got.shape == (len(lens), D)
+                    if (lens == 1).all():
+                        assert torch.equal(
+                            got, table[idx.long().clamp(0, R - 1)].float())
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5)

@@ -112,7 +112,7 @@ def test_config_copies_agree():
         assert dataclasses.asdict(jreg.reduced_config(arch)) == \
             dataclasses.asdict(treg.reduced_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        treg.get("dien")
+        treg.get("schnet")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         TSM.make_server(treg.reduced_config("qwen2-moe-a2.7b"),
                         TLayout(z=Z, slices_per_pool=SPP), 2, 64, "cpu")
