@@ -32,7 +32,11 @@ Phases, in order (any failure raises and exits non-zero):
      d_model 2048, 32 query / 4 KV heads, d_head 64, random weights
      from a seed) with the KV store on the slice-pool allocator, Z_kv =
      <6, 8, 10>: the ``paged_attention`` kernel against its plain
-     version at the serving shapes in fp32 and bf16; the paged decode
+     version in fp32 and bf16 at the serving shapes, at B = 1 across
+     the split edges (lengths 1 to max_len + 100) and at every registry
+     LM head shape, each call twice and bit-equal; its times, warm and
+     L2-flushed, beside the byte bound and gather + sdpa, at B = 32 and
+     B = 1 at full length and on the final serving state; the paged decode
      against the dense decode in fp32 (4 sequences in lockstep, every
      greedy token equal); then 64 requests on 32 slots (max_len 2048) in
      bf16, with the kernel held against its plain version again on the
@@ -91,6 +95,9 @@ from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
+from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
+from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
+                                        profiled_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
@@ -129,21 +136,6 @@ SCORED_K = 10                # the scored top-k route's k
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def require_equal(name: str, got, want) -> int:
@@ -380,7 +372,18 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         library_ms=cuda_ms(library), bytes=nbytes, max_abs_err=err,
         shape=f"N={n} lanes ({landed[0]} postings, {landed[1]} pointers, "
               f"{landed[2]} terms land; {skips} skip), heap {H}")
-    del seg, st, k_out, r_out, pre
+    # the same call L2-flushed, and the profiler's own kernel durations:
+    # its 15.5 MB fit the 50 MB L2, so warm repeats may beat HBM
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    r = rows["bulk_append"]
+    r["ms_cold"] = cuda_ms_cold(lambda: ops.bulk_append(*k_out, *scat), flush)
+    r["device_ms"], seen = profiled_ms(
+        lambda: ops.bulk_append(*k_out, *scat), "bulk_append_kernel")
+    log(f"bulk_append: {r['ms_cold']:.4f} ms L2-flushed; profiler "
+        + ("not measured" if r["device_ms"] is None else
+           f"{r['device_ms']:.4f} ms per launch") + f" ({seen} kernels "
+        f"seen); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del seg, st, k_out, r_out, pre, flush
     torch.cuda.empty_cache()
 
     # -- the segment kernels on lists shaped like a full segment's ------
@@ -595,17 +598,22 @@ def device_profile(fn, warm: bool = False) -> dict:
     clock around the synchronised call), device-busy time (the sum of
     the device's kernel and copy durations: one stream, so they do not
     overlap), the idle share, the device event count and the top device
-    ops by time (name, ms, count).  With ``warm``, ``fn`` first runs once
-    more inside the session and only device events that start after the
-    traced call's start count: late in this script (phase 6, after the
-    sessions of phases 3 and 5) a session was seen to drop its first 21
-    device events, which the first call absorbs."""
+    ops by time (name, ms, count).  With ``warm``, 64 one-element fills
+    and ``fn`` first run once more inside the session and only device
+    events that start after the traced call's start count: late in this
+    script (phase 6, after the sessions of phases 3 and 5) a session was
+    seen to drop its first 21 device events, and sometimes more (a
+    6-event call lost all of its own after one warm call); the fills
+    absorb them without a wrapper launch, so the launch counts stay."""
     from torch.profiler import ProfilerActivity, profile, record_function
     mark = "chip_smoke.traced_call"
+    pad = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         if warm:
+            for _ in range(64):
+                pad.zero_()
             fn()
             torch.cuda.synchronize()
         with record_function(mark):
@@ -831,6 +839,8 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
 PAGED_Z = (6, 8, 10)          # Z_kv: 64 / 256 / 1024-token slices
 PAGED_ERR = 1e-4              # kernel vs plain version, fp32 output
 DENSE_ERR = 1e-3              # paged vs dense logits, fp32 at full width
+LM_HEAD_ARCHS = ("tinyllama-1.1b", "gemma3-12b", "deepseek-coder-33b",
+                 "qwen2-moe-a2.7b", "grok-1-314b")   # G 8/2/7/1/6, D 64-256
 
 
 def _paged_case(rng, B, Hkv, G, D, lens, heap_pages, NP, dtype):
@@ -859,7 +869,11 @@ def _paged_bytes(q, kh, table, lens) -> int:
 
 
 def _paged_check(name, args) -> float:
+    """The kernel against its plain version within ``PAGED_ERR``, and a
+    second call on the same inputs bit-equal to the first (the split
+    partials merge in split order; the tickets reset)."""
     got = ops.paged_attention(*args)
+    again = ops.paged_attention(*args)
     torch.cuda.synchronize()
     want = ref.paged_attention_ref(*args)
     err = float((got - want).abs().max())
@@ -867,7 +881,39 @@ def _paged_check(name, args) -> float:
         raise AssertionError(f"paged_attention/{name}: max abs err {err} "
                              f"against its plain version (limit "
                              f"{PAGED_ERR})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"paged_attention/{name}: two calls on the "
+                             f"same inputs differ")
     return err
+
+
+def _paged_split(B, Hkv, G, NP) -> str:
+    """The split the wrapper picks at this shape (``split_plan``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S, pps = pa_kernel.split_plan(B, Hkv, G, NP, sms)
+    return (f"{S} splits x {pps} pages, "
+            f"{B * Hkv * -(-G // pa_kernel.HEADS) * S} CTAs on {sms} SMs")
+
+
+def _paged_times(name, args, flush) -> dict:
+    """The kernel and the library yardstick at one shape, warm (mean of
+    20 back-to-back launches) and cold (each launch timed alone after
+    the L2 is overwritten, as a serving step finds the pages), beside
+    the byte bound; logs the split the wrapper chose."""
+    nbytes = _paged_bytes(args[0], args[1], args[3], args[4])
+    t = dict(ms=cuda_ms(lambda: ops.paged_attention(*args), reps=20),
+             ms_cold=cuda_ms_cold(lambda: ops.paged_attention(*args), flush,
+                                  reps=20),
+             library_ms=cuda_ms(lambda: _sdpa_library(*args), reps=20),
+             library_ms_cold=cuda_ms_cold(lambda: _sdpa_library(*args),
+                                          flush),
+             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             split=_paged_split(*args[0].shape[:3], args[3].shape[1]))
+    log(f"paged_attention {name} ({t['split']}): kernel {t['ms']:.4f} ms "
+        f"warm, {t['ms_cold']:.4f} ms L2-flushed; library (gather + sdpa) "
+        f"{t['library_ms']:.4f} / {t['library_ms_cold']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms ({nbytes} bytes)")
+    return t
 
 
 def _sdpa_library(q, kh, vh, table, lens):
@@ -884,9 +930,12 @@ def _sdpa_library(q, kh, vh, table, lens):
         q.reshape(B, Hkv * G, 1, D), k, v, attn_mask=mask, enable_gqa=True)
 
 
-def paged_kernel_row(cfg, layout, max_seqs: int, max_len: int, seed: int):
-    """The kernel against its plain version at the serving shapes (fp32
-    and bf16; edge lengths), and its times at full length in bf16."""
+def paged_kernel_row(cfg, layout, max_seqs: int, max_len: int, seed: int,
+                     flush):
+    """The kernel against its plain version (fp32 and bf16): at the
+    serving shapes with edge lengths, at B = 1 (a prefill call) across
+    the split edges, at every registry LM head shape on a small heap;
+    and its times at full length in bf16, at B = max_seqs and B = 1."""
     rng = np.random.default_rng(seed)
     B, Hkv, D = max_seqs, cfg.n_kv_heads, cfg.d_head
     G = cfg.n_heads // Hkv
@@ -896,23 +945,42 @@ def paged_kernel_row(cfg, layout, max_seqs: int, max_len: int, seed: int):
     lens = (edge + list(rng.integers(1, max_len + 1, B)))[:B]
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
         args = _paged_case(rng, B, Hkv, G, D, lens, heap_pages, NP, dt)
-        errs[str(dt).split(".")[1]] = _paged_check(f"edge/{dt}", args)
+        errs[name] = _paged_check(f"edge/{dt}", args)
+        for n in (1, 64, 65, max_len - 1, max_len, max_len + 100):
+            args = _paged_case(rng, 1, Hkv, G, D, [n], heap_pages, NP, dt)
+            errs[f"{name}_b1"] = max(errs.get(f"{name}_b1", 0.0),
+                                     _paged_check(f"B=1 len {n}/{dt}", args))
+        for arch in LM_HEAD_ARCHS:
+            c = registry.get(arch).config
+            hk, g = c.n_kv_heads, c.n_heads // c.n_kv_heads
+            small = rng.integers(0, 8 * kv.PAGE + 30, 8).tolist()
+            args = _paged_case(rng, 8, hk, g, c.d_head, small, 8 * 8 + 8, 8,
+                               dt)
+            errs[f"{name}_heads"] = max(errs.get(f"{name}_heads", 0.0),
+                                        _paged_check(f"{arch}/{dt}", args))
+    log(f"paged_attention checks: split at the serving shape "
+        f"{_paged_split(B, Hkv, G, NP)}, at B = 1 "
+        f"{_paged_split(1, Hkv, G, NP)}; head shapes {LM_HEAD_ARCHS} on "
+        f"8 rows of 8 pages; max abs err {errs}")
     args = _paged_case(rng, B, Hkv, G, D, [max_len] * B, heap_pages, NP,
                        torch.bfloat16)
     errs["bf16_full"] = _paged_check("full/bf16", args)
-    row = dict(ms=cuda_ms(lambda: ops.paged_attention(*args), reps=20),
+    full = _paged_times(f"B={B} x {max_len} tokens", args, flush)
+    row = dict(ms=full["ms"], ms_cold=full["ms_cold"],
                plain_ms=cuda_ms(lambda: ref.paged_attention_ref(*args)),
-               library_ms=cuda_ms(lambda: _sdpa_library(*args), reps=20),
-               bytes=_paged_bytes(args[0], args[1], args[3], args[4]),
-               max_abs_err=max(errs.values()),
-               shape=f"B={B}, Hkv={Hkv}, G={G}, D={D}, {NP} pages of "
-                     f"{kv.PAGE} per row, all rows at {max_len} tokens, "
-                     f"bf16 heaps of {layout.total_slots} slots; max abs "
-                     f"err {errs}")
-    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    log(f"kernel paged_attention: {row['shape']}: kernel {row['ms']:.4f} "
-        f"ms, plain {row['plain_ms']:.4f} ms, library (gather + sdpa) "
+               library_ms=full["library_ms"], bytes=full["bytes"],
+               bound_ms=full["bound_ms"], max_abs_err=max(errs.values()),
+               times={"full": full})
+    args = _paged_case(rng, 1, Hkv, G, D, [max_len], heap_pages, NP,
+                       torch.bfloat16)
+    errs["bf16_b1_full"] = _paged_check("B=1 full/bf16", args)
+    row["times"]["b1"] = _paged_times(f"B=1 x {max_len} tokens", args, flush)
+    log(f"kernel paged_attention: B={B}, Hkv={Hkv}, G={G}, D={D}, {NP} "
+        f"pages of {kv.PAGE} per row, all rows at {max_len} tokens, bf16 "
+        f"heaps of {layout.total_slots} slots: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library (gather + sdpa) "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bytes']} bytes)")
     return row
@@ -994,7 +1062,9 @@ def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
     torch.cuda.synchronize()
     log(f"weights: random bf16 from seed {seed} in "
         f"{time.perf_counter() - t0:.1f} s")
-    row = paged_kernel_row(cfg, layout, max_seqs, max_len, seed)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    row = paged_kernel_row(cfg, layout, max_seqs, max_len, seed, flush)
+    del flush                      # out of the serving run's peak memory
     row["dense_err"] = paged_vs_dense(cfg, params, 4, 80, seed)
 
     torch.cuda.empty_cache()
@@ -1040,17 +1110,17 @@ def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
     for layer in (0, cfg.n_layers - 1):
         args = (q, state.k_heap[layer], state.v_heap[layer], table, lens)
         fin[layer] = _paged_check(f"final state layer {layer}", args)
-    real_ms = cuda_ms(lambda: ops.paged_attention(*args), reps=20)
-    real_bound = _paged_bytes(q, args[1], table, lens) / HBM_BYTES_PER_S * 1e3
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    real = _paged_times(f"on the final serving state (lengths "
+                        f"{lens.tolist()})", args, flush)
+    del flush
+    row["times"]["final_state"] = real
     row["max_abs_err"] = max(row["max_abs_err"], *fin.values())
-    log(f"paged_attention on the final serving state (lengths "
-        f"{lens.tolist()}): max abs err {fin}; kernel {real_ms:.4f} ms, "
-        f"bound {real_bound:.4f} ms")
+    log(f"paged_attention on the final serving state: max abs err {fin}")
     prof = traced_decode_step(server, params, state)
     summary = dict(stats={k: v for k, v in stats.items()
                           if k not in ("generated", "lengths")},
-                   peak_bytes=peak, final_state_ms=real_ms,
-                   final_state_bound_ms=real_bound, profile=prof,
+                   peak_bytes=peak, kernel_times=row["times"], profile=prof,
                    dense_err=row["dense_err"])
     del params, state, server
     torch.cuda.empty_cache()
@@ -1278,26 +1348,6 @@ def _bag_bytes(table, idx, off) -> int:
     B = off.numel() - 1
     return (rows * D * table.element_size() + idx.numel() * 4
             + off.numel() * 4 + B * D * 4)
-
-
-def cuda_ms_cold(fn, flush, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches, each timed by
-    its own CUDA events after ``flush`` (a buffer larger than the 50 MB
-    L2) is overwritten, so the call finds the table's rows cold as a
-    serving call does."""
-    for _ in range(warmup):
-        fn()
-    spans = []
-    for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        spans.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in spans) / reps
 
 
 def bag_timing(name, call) -> dict:

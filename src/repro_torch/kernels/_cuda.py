@@ -39,8 +39,9 @@ _SIGNATURES = {
     "scored_intersect_launch": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _P, _P, _P, _P, _P, _P, _I64, _I64,
                                 _P, _P, _P, _I64, _P],
-    "paged_attention_launch": [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64,
-                               _I64, _I64, _I64, _I64, _I64, _P],
+    "paged_attention_launch": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P,
+                               _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _P],
     "embedding_bag_launch": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64,
                              _I64, _P, _P],
 }

@@ -3,7 +3,9 @@
 The paged-KV server (``paged/serve_model.py``) flattens each sequence's
 slice chain into a table of 64-token pages; one launch of the kernel
 (``csrc/paged_attention.cu``) walks those pages for every (sequence, KV
-head) with an fp32 online softmax.  Layout:
+head) with an fp32 online softmax, each row split across ``S`` CTAs of
+``pps`` pages (:func:`split_plan`) whose partials the last of them
+merges in split order.  Layout:
 
   q          [B, Hkv, G, D]     (G = query heads per KV head)
   k/v heaps  [Hkv, slots, D]    (slot = token; pages are contiguous)
@@ -22,7 +24,50 @@ import torch
 from repro_torch.kernels import _cuda
 
 PAGE = 64
+HEADS = 8             # query heads per CTA (the tensor-core tile's n)
+CTAS_PER_SM = 4       # the grid the split rule aims at
+MAX_SPLITS = 64       # the kernel's merge stages S x 8 weights
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_sms = {}             # device index -> SM count
+_counters = {}        # (device index, stream) -> int32 zeros, one per unit
+
+
+def split_plan(B: int, Hkv: int, G: int, NP: int, sms: int):
+    """``(S, pps)``: split each row's ``NP`` pages into ``S`` runs of
+    ``pps`` consecutive pages, so that the grid of ``B * Hkv *
+    ceil(G / 8)`` units x ``S`` holds about ``CTAS_PER_SM`` CTAs per SM
+    (at least half that, unless the table has too few pages or
+    ``MAX_SPLITS`` caps it).  Shapes only: the lengths would cost a host
+    sync."""
+    units = B * Hkv * -(-G // HEADS)
+    S = max(1, min(NP, MAX_SPLITS, (CTAS_PER_SM * sms) // units))
+    pps = -(-NP // S)
+    return -(-NP // pps), pps
+
+
+def _index(device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _sm_count(device) -> int:
+    idx = _index(device)
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _zeroed_counters(device, stream: int, n: int):
+    """The kernel's per-unit tickets: zeroed once per (device, stream)
+    (and when they grow); every launch leaves them zero.  Launches on
+    one stream run in order, so they may share tickets; launches on two
+    streams may overlap, so each stream has its own."""
+    key = (_index(device), stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 def paged_attention(q, k_heap, v_heap, page_table, lengths):
@@ -59,12 +104,21 @@ def paged_attention(q, k_heap, v_heap, page_table, lengths):
         return out
     if NP == 0:
         return out.zero_()
+    S, pps = split_plan(B, Hkv, G, NP, _sm_count(q.device))
+    units = B * Hkv * -(-G // HEADS)
+    stream = _cuda.stream_ptr(q.device)
+    ws = counters = None
+    if S > 1:
+        ws = torch.empty(units * S * (2 * HEADS + HEADS * D),
+                         dtype=torch.float32, device=q.device)
+        counters = _zeroed_counters(q.device, stream, units)
     paged_attention.launches += 1
     err = _cuda.lib().paged_attention_launch(
         q.data_ptr(), _BF16[q.dtype], k_heap.data_ptr(), v_heap.data_ptr(),
         _BF16[k_heap.dtype], page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, Hkv, G, D, NP, slots,
-        _cuda.stream_ptr(q.device))
+        out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        B, Hkv, G, D, NP, slots, S, pps, stream)
     _cuda.check(err, name)
     return out
 

@@ -117,6 +117,49 @@ def paged_attention_ref(q, k_heap, v_heap, page_table, lengths):
     return torch.einsum("bhgt,bhtd->bhgd", p, v)
 
 
+def paged_attention_split_ref(q, k_heap, v_heap, page_table, lengths, S,
+                              pps):
+    """:func:`paged_attention_ref` as the CUDA kernel splits it: split s
+    of a row walks pages ``[s * pps, (s + 1) * pps)`` into an fp32
+    partial ``(m, l, acc)`` (an empty split: m = -inf, l = 0), and the
+    partials merge in split order 0..S-1.  A mirror for the tests."""
+    page = PAGE
+    B, Hkv, G, D = q.shape
+    NP = page_table.shape[1]
+    ne = lengths.long().clamp(0, NP * page)[:, None, None, None]
+    parts = []
+    for s in range(S):
+        cols = torch.arange(s * pps, min((s + 1) * pps, NP), device=q.device)
+        if cols.numel() == 0:
+            parts.append(None)
+            continue
+        pages = page_table[:, cols].long().clamp(min=0)
+        slots = (pages[:, :, None] * page
+                 + torch.arange(page, device=q.device)).reshape(B, -1)
+        k = k_heap[:, slots].permute(1, 0, 2, 3).float()
+        v = v_heap[:, slots].permute(1, 0, 2, 3).float()
+        sc = torch.einsum("bhgd,bhtd->bhgt", q.float(), k) * (D ** -0.5)
+        t_pos = s * pps * page + torch.arange(slots.shape[1], device=q.device)
+        sc = torch.where(t_pos < ne, sc, float("-inf"))
+        m = sc.amax(-1, keepdim=True)                      # [B, Hkv, G, 1]
+        p = torch.where(m > float("-inf"), torch.exp(sc - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhgt,bhtd->bhgd", p, v)))
+    m_all = torch.stack([pt[0] for pt in parts if pt is not None]).amax(0)
+    live = m_all > float("-inf")
+    l_sum = torch.zeros_like(m_all)
+    acc = torch.zeros(B, Hkv, G, D, dtype=torch.float32, device=q.device)
+    for pt in parts:                                     # split order
+        if pt is None:
+            continue
+        w = torch.where(pt[0] > float("-inf"),
+                        torch.exp(pt[0] - torch.where(live, m_all, 0.0)), 0.0)
+        l_sum = l_sum + pt[1] * w
+        acc = acc + pt[2] * w
+    return torch.where(l_sum > 0, acc / torch.where(l_sum > 0, l_sum, 1.0),
+                       0.0)
+
+
 def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
     """CSR embedding bag: ``out[b]`` sums (``mode="mean"``: averages,
     an empty bag dividing by 1) the table rows

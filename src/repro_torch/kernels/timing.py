@@ -1,0 +1,108 @@
+"""Device timers for the port's kernels: CUDA events and the profiler.
+
+``chip_smoke.py`` and ``launch/time_paged_attention.py`` time every
+kernel with these, so two checkouts timed in one call share one
+yardstick.  This module imports nothing but torch: the A/B script loads
+it by path beside another checkout's ``repro_torch``.
+
+The event timers first put the device to sleep while the host queues the
+timed launches (the head start), so a call shorter than its host-side
+cost is timed on the device, not at the host's launch rate.  The sleep
+is sized from the host's time per call in the warm-up, so it outlasts the
+queueing of every timed repeat.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+SLEEP_CYCLES_PER_S = 2.0e9     # at or above the H100's 1.98 GHz boost clock
+MIN_HEAD_START_S = 0.0025
+MAX_HEAD_START_S = 0.25
+
+
+def _head_start(host_s_per_rep: float, reps: int) -> None:
+    """Sleep the device for twice the host's time to queue ``reps``
+    repeats (at least ``MIN_HEAD_START_S``, at most
+    ``MAX_HEAD_START_S``)."""
+    s = min(max(2.0 * reps * host_s_per_rep, MIN_HEAD_START_S),
+            MAX_HEAD_START_S)
+    torch.cuda._sleep(int(s * SLEEP_CYCLES_PER_S))
+
+
+def _warm(fn, warmup: int, before=None) -> float:
+    """Run ``warmup`` calls; return the host's seconds per call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        if before is not None:
+            before()
+        fn()
+    return (time.perf_counter() - t0) / max(warmup, 1)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2,
+            head_start: bool = True) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back launches,
+    CUDA events around them all.  ``head_start=False`` drops the device
+    sleep, to compare with times taken without one (a short call is
+    then timed at the host's launch rate)."""
+    host = _warm(fn, warmup)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if head_start:
+        _head_start(host, reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, flush, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches, each timed by
+    its own CUDA events after ``flush`` (a buffer larger than the 50 MB
+    L2) is overwritten, so the call finds its operands cold as a serving
+    call does."""
+    host = _warm(fn, warmup, before=flush.zero_)
+    spans = []
+    torch.cuda.synchronize()
+    _head_start(host, reps)
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        spans.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
+
+
+def profiled_ms(fn, match: str, reps: int = 10, warmup: int = 2):
+    """Mean device duration of the kernels whose name holds ``match``,
+    one per call of ``fn``, from the profiler's own kernel records (no
+    host clock, no events between launches): ``(ms, n)`` over the last
+    ``reps`` such kernels, or ``(None, n)`` when the profiler recorded
+    fewer than ``reps`` of them."""
+    from torch.profiler import ProfilerActivity, profile
+    _warm(fn, warmup)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()                       # absorbs events a session may drop
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = sorted((e.time_range.start, e.device_time_total)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.name)
+    if len(ks) < reps:
+        return None, len(ks)
+    return sum(t for _, t in ks[-reps:]) / reps / 1e3, len(ks)

@@ -210,32 +210,69 @@ def test_scored_kernel_matches_plain_version_on_the_card():
 @pytest.mark.cuda
 def test_paged_attention_kernel_matches_plain_version_on_the_card():
     """The paged-attention CUDA kernel against its plain version: fp32
-    and bf16 heaps, D from 8 to 256 (shared memory past 48 KB), lengths
-    at page edges, 0, and longer than the table."""
+    and bf16 heaps, D from 8 to 256 (shared memory past 48 KB; D % 16 ==
+    8 and G > 8 take the SIMT P.V and a second head group), lengths
+    at page edges, 0, and longer than the table; B = 1 rows of 2048+
+    tokens and lengths at the split edges; every registry LM head shape
+    (G in {1, 2, 6, 7, 8}, D in {64, 128, 256}); two calls on the
+    same inputs bit-equal (a split-order merge, counters that reset);
+    and the kernel against the plain split-and-merge at its own split."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as tpa
     rng = np.random.default_rng(2)
-    for (B, Hkv, G, D), dt in (((3, 2, 4, 8), torch.float32),
-                               ((5, 4, 8, 64), torch.bfloat16),
-                               ((2, 1, 8, 256), torch.float32),
-                               ((4, 2, 2, 128), torch.bfloat16)):
-        NP, pages = 3, 40
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def check(B, Hkv, G, D, dt, lens, NP, pages, pad_row0=False):
         table = torch.as_tensor(
             rng.permutation(pages)[:B * NP].reshape(B, NP), dtype=torch.int32)
-        table[0, 1:] = -1
-        lens = torch.as_tensor([64, 0, 65, 3 * 64 + 7, 1][:B],
-                               dtype=torch.int32)
+        if pad_row0:
+            table[0, 1:] = -1
         q = torch.randn(B, Hkv, G, D).to(dt)
         kh = torch.randn(Hkv, pages * 64, D).to(dt)
         vh = torch.randn(Hkv, pages * 64, D).to(dt)
-        args = [t.cuda() for t in (q, kh, vh, table, lens)]
+        args = [t.cuda() for t in (q, kh, vh, table,
+                                   torch.as_tensor(lens, dtype=torch.int32))]
         got = ops.paged_attention(*args)
+        again = ops.paged_attention(*args)
         torch.cuda.synchronize()
         want = ref.paged_attention_ref(*args)
         assert got.dtype == torch.float32
-        assert float((got - want).abs().max()) <= 1e-4
+        assert float((got - want).abs().max()) <= 1e-4, (B, Hkv, G, D, dt)
+        assert torch.equal(got, again)
+        # the plain split-and-merge at the split the wrapper picks
+        split = tpa.split_plan(B, Hkv, G, NP, sms)
+        mirror = ref.paged_attention_split_ref(*args, *split)
+        assert float((got - mirror).abs().max()) <= 1e-4, (B, G, D, split)
+        return got
+
+    for (B, Hkv, G, D), dt in (((3, 2, 4, 8), torch.float32),
+                               ((5, 4, 8, 64), torch.bfloat16),
+                               ((2, 1, 8, 256), torch.float32),
+                               ((4, 2, 2, 128), torch.bfloat16),
+                               ((3, 2, 3, 8), torch.bfloat16),
+                               ((4, 1, 12, 24), torch.bfloat16),
+                               ((2, 3, 9, 40), torch.float32)):
+        got = check(B, Hkv, G, D, dt, [64, 0, 65, 3 * 64 + 7, 1][:B], 3, 40,
+                    pad_row0=True)
         assert not got[1].any()
+    # B = 1 prefill rows, 2048+ tokens, at the split edges
+    NP = 2148 // 64 + 1
+    S, pps = tpa.split_plan(1, 4, 8, NP, sms)
+    edge = pps * 64
+    for n in (1, 64, 65, edge - 1, edge, edge + 1, 2047, 2048, 2148, 4000):
+        for dt in (torch.float32, torch.bfloat16):
+            check(1, 4, 8, 64, dt, [n], NP, 64)
+    # every registry LM head shape, B = 1 and B = 32
+    for arch in ("tinyllama-1.1b", "gemma3-12b", "deepseek-coder-33b",
+                 "qwen2-moe-a2.7b", "grok-1-314b"):
+        cfg = treg.get(arch).config
+        Hkv, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        for B in (1, 32):
+            lens = list(rng.integers(0, 8 * 64 + 30, B))
+            for dt in (torch.float32, torch.bfloat16):
+                check(B, Hkv, G, cfg.d_head, dt, lens, 8, 8 * 32 + 8)
 
 
 @pytest.mark.cuda
