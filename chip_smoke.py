@@ -8,9 +8,12 @@ Phases, in order (any failure raises and exits non-zero):
   1. the card (``nvidia-smi``), torch/CUDA versions, the kernel build;
   2. every CUDA kernel against its plain torch version on the card, at
      the main path's shapes, bit for bit (the scored kernel at three
-     thresholds: none, about half the blocks skipped, all skipped) —
-     plus its time, the plain version's, one library call's and the
-     bound the card's memory rate sets;
+     thresholds: none, about half the blocks skipped, all skipped;
+     ``intersect_mask`` twice on each of its edge cases and on three
+     pairs padded to max_len: head vs torso, torso vs head, head vs an
+     all-pad list) — plus its time, the plain version's, one library
+     call's and the bound the card's memory rate sets (for
+     ``intersect_mask`` also L2-flushed and by the profiler);
   3. the main path at full width: a Zipf(1.0) tweet stream over a 2**20
      term vocabulary into Earlybird's 2**23-tweet segment under the
      paper's production pools Z^g = <1, 4, 7, 11>, in 4096-tweet arrival
@@ -24,7 +27,9 @@ Phases, in order (any failure raises and exits non-zero):
      smaller depth: 2**16-tweet segments, >= 3 rollovers with
      CompactionPolicy(fanout=2), every query kind batched and
      ``batched=False`` (the per-segment kernels), which must agree bit
-     for bit and with the brute force; every batch journaled and a
+     for bit and with the brute force (the sequential route's
+     ``intersect_mask`` calls are replayed under the profiler for their
+     summed device time); every batch journaled and a
      snapshot taken mid-stream, then the engine dropped and recovered
      on the card: equal fingerprint and answers, and a truncated
      archive must raise ``CorruptSnapshotError``;
@@ -60,7 +65,9 @@ Phases, in order (any failure raises and exits non-zero):
      lookups.
 
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
-and 6 (short rehearsals).
+and 6 (short rehearsals); ``--intersect-calls PATH`` phases 1 and 4,
+saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
+``launch/time_intersect_mask.py --calls``.
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -97,8 +104,9 @@ from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
 from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
-                                        profiled_ms)
+                                        profiled_ms, profiled_total_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
+from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
@@ -325,6 +333,25 @@ def _split_threshold(bound: np.ndarray, n_real: int) -> int:
     return int(cands[np.argmin(np.abs(skip - 0.5))])
 
 
+def intersect_edge_cases() -> int:
+    """``intersect_mask`` on the card against its plain version on the
+    edge cases of ``launch/time_intersect_mask.py`` (duplicated runs that
+    straddle the kernel's tiles, empty valid prefixes, equal and
+    disjoint lists, extreme values, several rows), sized from tiles of
+    7, 64 and the kernel's 4,096: bit for bit, twice.  Returns the count."""
+    n = 0
+    for tile in (7, 64, 4096):
+        for name, a, b in tim.edge_cases(tile):
+            a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+            want = ref.intersect_mask_ref(a, b)
+            for k in range(2):
+                require_equal(f"intersect_mask/{name} at tile {tile} "
+                              f"(call {k})", ops.intersect_mask(a, b), want)
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
                   q_rows: int, seed: int):
     dev = torch.device("cuda")
@@ -505,28 +532,44 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
     del sca, scb, a_ids, b_ids, a_sc, b_sc, runs
     torch.cuda.empty_cache()
 
-    # -- intersect_mask: two active lists at the engine's max_len ------
+    # -- intersect_mask: edge cases, then active lists at max_len -------
+    n_edge = intersect_edge_cases()
     max_len = 1 << (seg_docs - 1).bit_length()
-    act = []
-    for x in (la[0], lb[2]):
-        t = torch.full((max_len,), 0xFFFFFFFF, dtype=torch.int64, device=dev)
-        t[: x.size] = torch.from_numpy(x.astype(np.int64)).to(dev)
-        act.append(t)
-    a2, b2 = act
-    got = ops.intersect_mask(a2, b2)
-    want = ref.intersect_mask_ref(a2, b2)
-    torch.cuda.synchronize()
-    err = require_equal("intersect_mask", got, want)
-    rows["intersect_mask"] = dict(
-        ms=cuda_ms(lambda: ops.intersect_mask(a2, b2)),
-        plain_ms=cuda_ms(lambda: ref.intersect_mask_ref(a2, b2)),
-        library_ms=cuda_ms(lambda: torch.gather(
-            b2, 0, torch.searchsorted(b2, a2).clamp_(max=max_len - 1))
-            == a2),
-        bytes=(a2.numel() + b2.numel()) * 8 + got.numel() * 4,
-        max_abs_err=err,
-        hits=int(got.sum()),
-        shape=f"na=nb={max_len} ({la[0].size} and {lb[2].size} valid)")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for name, a2, b2 in tim.full_width_shapes(la[0], lb[2], max_len, dev):
+        want = ref.intersect_mask_ref(a2, b2)
+        got, again = ops.intersect_mask(a2, b2), ops.intersect_mask(a2, b2)
+        torch.cuda.synchronize()
+        err = require_equal(f"intersect_mask/{name}", got, want)
+        require_equal(f"intersect_mask/{name} repeat", again, want)
+
+        def call(a2=a2, b2=b2):
+            return ops.intersect_mask(a2, b2)
+
+        def library(a2=a2, b2=b2):
+            pos = torch.searchsorted(b2, a2).clamp_(max=max_len - 1)
+            return torch.gather(b2, 0, pos) == a2
+        needed, full = tim.bound_bytes(a2, b2)
+        r = dict(ms=cuda_ms(call), ms_cold=cuda_ms_cold(call, flush),
+                 device_ms=profiled_ms(call, "intersect_mask")[0],
+                 plain_ms=cuda_ms(lambda a2=a2, b2=b2:
+                                  ref.intersect_mask_ref(a2, b2)),
+                 library_ms=cuda_ms(library), bytes=needed,
+                 max_abs_err=err, hits=int(got.sum()),
+                 shape=f"{name}: na=nb={max_len} "
+                       f"({int((a2 != 0xFFFFFFFF).sum())} and "
+                       f"{int((b2 != 0xFFFFFFFF).sum())} valid)")
+        log(f"intersect_mask {r['shape']}: bit-identical twice; kernel "
+            f"{r['ms']:.4f} ms warm, {r['ms_cold']:.4f} L2-flushed, "
+            + ("profiler not measured" if r["device_ms"] is None else
+               f"{r['device_ms']:.4f} by the profiler")
+            + f"; library {r['library_ms']:.4f} ms; bound "
+            f"{needed / HBM_BYTES_PER_S * 1e3:.4f} ms ({needed} bytes as "
+            f"the call needs them; {full / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"over the padded arrays)")
+        rows.setdefault("intersect_mask", r)    # the row: head vs torso
+    log(f"intersect_mask: {n_edge} edge cases bit-identical twice")
+    del flush
 
     for name, r in rows.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -598,7 +641,8 @@ def device_profile(fn, warm: bool = False) -> dict:
     clock around the synchronised call), device-busy time (the sum of
     the device's kernel and copy durations: one stream, so they do not
     overlap), the idle share, the device event count and the top device
-    ops by time (name, ms, count).  With ``warm``, 64 one-element fills
+    ops by time (name, ms, count), and every device op's (ms, count) by
+    name (``per``).  With ``warm``, 64 one-element fills
     and ``fn`` first run once more inside the session and only device
     events that start after the traced call's start count: late in this
     script (phase 6, after the sessions of phases 3 and 5) a session was
@@ -636,7 +680,7 @@ def device_profile(fn, warm: bool = False) -> dict:
     top = sorted(((k[:60], t, c) for k, (t, c) in per.items()),
                  key=lambda x: -x[1])[:6]
     return dict(out=out, wall_ms=wall, busy_ms=busy, idle=1 - busy / wall,
-                events=sum(c for _, c in per.values()), top=top)
+                events=sum(c for _, c in per.values()), top=top, per=per)
 
 
 def top_ops(prof: dict, digits: int = 1) -> str:
@@ -655,6 +699,15 @@ def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
         log(f"profile {name}: wall {p['wall_ms']:.1f} ms, device busy "
             f"{p['busy_ms']:.1f} ms ({100 * p['idle']:.0f}% idle); top: "
             + top_ops(p))
+        if name == "ingest":
+            # the scatter kernel where it runs: the plan has just written
+            # its streams, so they may still be in the L2
+            ba = [(t, c) for k, (t, c) in p["per"].items()
+                  if "bulk_append" in k]
+            ms, n = sum(t for t, _ in ba), sum(c for _, c in ba)
+            log(f"profile ingest: bulk_append_kernel {ms:.4f} ms over {n} "
+                f"launch(es) in the traced batch"
+                + (f" ({ms / n:.4f} ms each)" if n else ""))
 
 
 def oracle_answers(bf: BruteForce, queries, pairs):
@@ -754,8 +807,10 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
 # phase 4: compaction and the sequential route, smaller depth
 # ---------------------------------------------------------------------------
 def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
-                     n_queries: int, tmp: str):
-    """``tmp``: a scratch directory for the snapshot and the journal."""
+                     n_queries: int, tmp: str, save_calls: str = ""):
+    """``tmp``: a scratch directory for the snapshot and the journal;
+    ``save_calls``: where to ``torch.save`` the sequential route's
+    ``intersect_mask`` inputs (CPU (a, b) pairs, in order), if given."""
     n_docs = docs.shape[0]
     layout, _, fmax = size_layout(docs, vocab, seg_docs)
     eng = LifecycleEngine(
@@ -782,9 +837,36 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
     queries, pairs = query_batch(docs, vocab, n_queries, seed=2)
     batched = run_queries(eng, queries, pairs, n_queries)
     eng.batched = False
+    calls, real = [], ops.intersect_mask
+
+    def spy(a, b):              # keeps the call's inputs; launches once
+        calls.append((a.clone(), b.clone()))
+        return real(a, b)
+    ops.intersect_mask = spy
     ops.reset_launch_counts()
-    seq = run_queries(eng, queries, pairs, n_queries)
+    try:
+        seq = run_queries(eng, queries, pairs, n_queries)
+    finally:
+        ops.intersect_mask = real
     counts = ops.launch_counts()
+    if len(calls) != counts["intersect_mask"]:
+        raise AssertionError(f"{len(calls)} intersect_mask calls seen, "
+                             f"{counts['intersect_mask']} launches counted")
+    def replay():
+        for a, b in calls:
+            ops.intersect_mask(a, b)
+    seq_ms, seen = profiled_total_ms(replay, "intersect_mask")
+    need = sum(tim.bound_bytes(a, b)[0] for a, b in calls)
+    log(f"sequential route: {len(calls)} intersect_mask calls at their own "
+        f"shapes (na {sorted({a.shape[-1] for a, _ in calls})}), replayed "
+        f"under the profiler: {seen} kernels, {seq_ms:.4f} ms in all "
+        f"({seq_ms / max(seen, 1):.4f} ms each); their bound "
+        f"{need / HBM_BYTES_PER_S * 1e3:.4f} ms ({need} bytes)")
+    if save_calls:
+        torch.save([(a.cpu(), b.cpu()) for a, b in calls], save_calls)
+        log(f"sequential route: {len(calls)} intersect_mask inputs saved "
+            f"to {save_calls}")
+    del calls
     bf = BruteForce(docs, {t for q in queries for t in q}, vocab)
     want = oracle_answers(bf, queries, pairs)
     for kind in batched:
@@ -1127,6 +1209,16 @@ def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
     return row, counts, summary
 
 
+def phase_small(save_calls: str = "") -> dict:
+    """Phase 4 at its 2**16-tweet depth (the same whatever
+    ``--segment-log2``); returns the sequential route's launches."""
+    small = 1 << 16
+    sdocs = make_stream(1 << 16, 4 * small + small // 2, seed=7)
+    with tempfile.TemporaryDirectory() as tmp:
+        return phase_sequential(sdocs, 1 << 16, small, n_queries=16,
+                                tmp=tmp, save_calls=save_calls)
+
+
 def phase_index(segment_log2: int):
     """Phases 2-4 (the streaming index); returns their kernel rows."""
     seg_docs = 1 << segment_log2
@@ -1147,11 +1239,7 @@ def phase_index(segment_log2: int):
     main_sum = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
                           n_queries=64, fmax=fmax)
     del docs
-    small = 1 << 16
-    sdocs = make_stream(1 << 16, 4 * small + small // 2, seed=7)
-    with tempfile.TemporaryDirectory() as tmp:
-        seq_counts = phase_sequential(sdocs, 1 << 16, small, n_queries=16,
-                                      tmp=tmp)
+    seq_counts = phase_small()
 
     table = []
     for name in ("bulk_append", "segment_intersect_mask_batched",
@@ -1519,6 +1607,10 @@ def main(argv=None) -> int:
                     help="run only the build and the paged-serving phase")
     ap.add_argument("--recsys-only", action="store_true",
                     help="run only the build and the recsys-serving phase")
+    ap.add_argument("--intersect-calls", default="", metavar="PATH",
+                    help="run only the build and phase 4, and save the "
+                         "sequential route's intersect_mask inputs to PATH "
+                         "(for launch/time_intersect_mask.py --calls)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1531,9 +1623,11 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {build_s:.1f} s")
 
     table = []
-    if not (args.paged_only or args.recsys_only):
+    if args.intersect_calls:
+        phase_small(args.intersect_calls)
+    elif not (args.paged_only or args.recsys_only):
         table = phase_index(args.segment_log2)
-    if not args.recsys_only:
+    if not (args.recsys_only or args.intersect_calls):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
         table.append(dict(
@@ -1546,7 +1640,7 @@ def main(argv=None) -> int:
             bound_by="bytes", library_ms=row["library_ms"]))
         log("paged serving: " + json.dumps(paged_sum))
         log(f"paged phase {time.perf_counter() - t0:.1f} s")
-    if not args.paged_only:
+    if not (args.paged_only or args.intersect_calls):
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")

@@ -5,9 +5,12 @@ Inputs are ASCENDING lists of uint32 docids (int64 tensors) padded with
 INVALID (0xFFFFFFFF) — the query-engine representation.  The output is
 an int32 membership mask over ``a`` (1 where a[i] is valid and present
 in b); compaction happens in the caller (``core.query._compact``).  The
-kernel (``csrc/postings_intersect.cu``) gives one thread to each element
-of ``a`` and binary-searches ``b``; the plain torch version is
-``kernels.ref.intersect_mask_ref``.
+kernel (``csrc/postings_intersect.cu``) finds each row's valid lengths on
+the device, cuts the merge of the valid prefixes into ``TILE``-element
+merge-path tiles, stages them in shared memory and marks ``a``'s lanes
+there; pad lanes get zeros.  The plain torch version is
+``kernels.ref.intersect_mask_ref``; ``kernels.ref.intersect_mask_tiled_ref``
+mirrors the kernel's tiling for the tests.
 """
 from __future__ import annotations
 
@@ -16,12 +19,13 @@ import torch
 from repro_torch.kernels import _cuda
 
 INVALID = 0xFFFFFFFF
+TILE = 4096        # merged elements per tile: kTile in the CUDA source
 
 
 def pick_tile(n: int, preferred: int = 256) -> int:
     """Largest power-of-two tile <= ``preferred`` dividing ``n`` — the
-    reference's tile rule, kept for API parity.  The CUDA kernel has no
-    tiles (one thread per element of ``a``), so it takes no tile sizes.
+    reference's tile rule, kept for API parity.  The CUDA kernel tiles
+    the merge of the valid prefixes (``TILE``), so it takes no tile sizes.
     """
     t = min(preferred, n)
     while t > 1 and n % t:

@@ -7,9 +7,12 @@ card.  uint32 values travel as int64 holding the value.
 """
 from __future__ import annotations
 
+from bisect import bisect_left, bisect_right
+
 import torch
 
 from repro_torch.kernels.paged_attention import PAGE
+from repro_torch.kernels.postings_intersect import TILE
 from repro_torch.kernels.segment_intersect import (SEG_BLOCK,
                                                    decode_packed,
                                                    decode_scores,
@@ -25,6 +28,70 @@ def intersect_mask_ref(a, b, invalid: int = INVALID):
     pos = pos.clamp_(max=b.shape[-1] - 1)
     hit = (torch.gather(b, -1, pos) == a) & (a != invalid)
     return hit.to(torch.int32)
+
+
+def intersect_tiles(a_row, b_row, tile: int = TILE, invalid: int = INVALID):
+    """The CUDA kernel's partition of one row pair: ``(na_v, jlo, jhi,
+    tiles)``.  ``na_v`` is a's valid length (its first ``invalid``),
+    ``[jlo, jhi)`` the entries of b inside ``[a[0], a[na_v - 1]]``
+    (lower and upper bound), and ``tiles`` the co-ranks ``(i0, i1, j0,
+    j1)`` of each ``tile``-element diagonal of the merge of ``a[:na_v]``
+    and ``b[jlo:jhi]``, b first on ties (j counts from jlo).  No tiles
+    when either part is empty: the row is all pads."""
+    A = a_row.tolist()
+    na_v = bisect_left(A, invalid)
+    if na_v == 0:
+        return 0, 0, 0, []
+    B = b_row.tolist()
+    jlo, jhi = bisect_left(B, A[0]), bisect_right(B, A[na_v - 1])
+    nb_r = jhi - jlo
+    if nb_r == 0:
+        return na_v, jlo, jhi, []
+
+    def co_rank(k):
+        # the a elements among the merge's first k: the smallest i with
+        # b[jlo + k - i - 1] <= a[i] (that b element goes first)
+        lo, hi = max(0, k - nb_r), min(k, na_v)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if B[jlo + k - mid - 1] <= A[mid]:
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+    ks = list(range(0, na_v + nb_r, tile)) + [na_v + nb_r]
+    cs = [co_rank(k) for k in ks]
+    return na_v, jlo, jhi, [(i0, i1, k0 - i0, k1 - i1) for k0, i0, k1, i1
+                            in zip(ks, cs, ks[1:], cs[1:])]
+
+
+def intersect_mask_tiled_ref(a, b, tile: int = TILE, invalid: int = INVALID):
+    """:func:`intersect_mask_ref` as the CUDA kernel computes it, tile by
+    tile (a mirror for the tests).  Per row, the partition of
+    :func:`intersect_tiles`; each tile stages ``b[jlo + j0 - 1]`` (or
+    ``invalid`` before b's start) ahead of its own b elements, and
+    ``a[i]`` is a hit when the staged element at the count of tile
+    elements ``<= a[i]`` equals it.  Pad lanes and rows without tiles
+    are 0."""
+    out = torch.zeros(a.shape, dtype=torch.int32, device=a.device)
+    na = a.shape[-1]
+    if na == 0 or a.numel() == 0:
+        return out
+    a2, b2 = a.reshape(-1, na), b.reshape(-1, b.shape[-1])
+    o2 = out.view(-1, na)
+    for r in range(a2.shape[0]):
+        _, jlo, _, tiles = intersect_tiles(a2[r], b2[r], tile, invalid)
+        for i0, i1, j0, j1 in tiles:
+            x = a2[r, i0:i1].contiguous()
+            bt = b2[r, jlo + j0: jlo + j1].contiguous()
+            g = jlo + j0 - 1
+            sentinel = (b2[r, g: g + 1] if g >= 0 else
+                        torch.full((1,), invalid, dtype=b.dtype,
+                                   device=b.device))
+            staged = torch.cat([sentinel, bt])
+            cnt = torch.searchsorted(bt, x, right=True)
+            o2[r, i0:i1] = (staged[cnt] == x).to(torch.int32)
+    return out
 
 
 def bulk_append_ref(heap, tail, freq, post_addr, post_val, ptr_addr,

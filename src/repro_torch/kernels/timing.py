@@ -1,9 +1,10 @@
 """Device timers for the port's kernels: CUDA events and the profiler.
 
-``chip_smoke.py`` and ``launch/time_paged_attention.py`` time every
-kernel with these, so two checkouts timed in one call share one
-yardstick.  This module imports nothing but torch: the A/B script loads
-it by path beside another checkout's ``repro_torch``.
+``chip_smoke.py``, ``launch/time_paged_attention.py`` and
+``launch/time_intersect_mask.py`` time every kernel with these, so two
+checkouts timed in one call share one yardstick.  This module imports
+nothing but torch: the A/B scripts load it by path beside another
+checkout's ``repro_torch``.
 
 The event timers first put the device to sleep while the host queues the
 timed launches (the head start), so a call shorter than its host-side
@@ -106,3 +107,26 @@ def profiled_ms(fn, match: str, reps: int = 10, warmup: int = 2):
     if len(ks) < reps:
         return None, len(ks)
     return sum(t for _, t in ks[-reps:]) / reps / 1e3, len(ks)
+
+
+def profiled_total_ms(fn, match: str, reps: int = 1, warmup: int = 1):
+    """Summed device duration, per call of ``fn``, of the kernels whose
+    name holds ``match`` (a call may launch many), from the profiler's
+    kernel records over ``reps`` calls in one session, after 64
+    one-element fills that absorb events a session may drop: ``(ms, n)``
+    with ``n`` the kernels seen in all, for the caller to check."""
+    from torch.profiler import ProfilerActivity, profile
+    _warm(fn, warmup)
+    pad = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.zero_()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e.device_time_total for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and match in e.name]
+    return sum(ks) / reps / 1e3, len(ks)

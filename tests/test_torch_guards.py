@@ -159,6 +159,18 @@ def test_kernels_match_plain_versions_on_the_card():
     x[:, :300] = torch.arange(0, 600, 2)
     y[:, :400] = torch.arange(0, 1200, 3)
     assert torch.equal(ops.intersect_mask(x, y), ref.intersect_mask_ref(x, y))
+    # the redesigned kernel's edge cases (runs straddling its 4,096-element
+    # tiles, empty prefixes, equal, disjoint, extreme values, rows) and
+    # the three max_len = 2**23 pairs, each twice and bit-equal
+    from repro_torch.launch import time_intersect_mask as tim
+    cases = [(f"{n} ({t})", torch.from_numpy(a).to(dev),
+              torch.from_numpy(b).to(dev))
+             for t in (7, 64, 4096) for n, a, b in tim.edge_cases(t)]
+    cases += tim.full_width_shapes(*tim.segment_lists(), device=dev)
+    for name, p_, q_ in cases:
+        want = ref.intersect_mask_ref(p_, q_)
+        for _ in range(2):
+            assert torch.equal(ops.intersect_mask(p_, q_), want), name
     layout = tp.PoolLayout(z=(1, 4, 7, 11), slices_per_pool=(64, 32, 16, 8))
     st = tsp.init_state(layout, 8, dev)
     ingest = tsp.make_bulk_ingest_fn(layout, 8, dev)
