@@ -55,19 +55,23 @@ Phases, in order (any failure raises and exits non-zero):
      at its published widths with a bf16 table (44.8 GiB; cut: the fp32
      table does not fit one card) at serve_p99.  Checks: (a) the kernel
      against its plain version on every call of each forward (single-row
-     bags bit for bit), (b) on synthetic bags (lengths 0-64, empty, N = 0,
-     D 1/10/16/18/128, fp32 and bf16, ids out of range), (c) each output
-     against the same forward with plain lookups, (d) the launch count;
-     the four reduced configs on the card against the CPU.  Reports ms per
-     batch, samples/s, a traced batch's idle share and top ops, peak
-     memory, and the kernel against its bound, its plain version and
-     ``F.embedding_bag`` at the DCN-v2 serve_bulk and DLRM serve_p99
-     lookups.
+     bags bit for bit, every bag bit-equal to the in-order sum), (b) on
+     synthetic bags (lengths 0-64, empty, N = 0, D 1/10/16/18/128, fp32
+     and bf16, ids out of range; bags longer than a chunk, offsets[0] >
+     0, a malformed CSR, misaligned table views, the ten path shapes at
+     100,000 rows), (c) each output against the same forward with plain
+     lookups, (d) the launch count; the four reduced configs on the card
+     against the CPU.  Reports ms per batch, samples/s, a traced batch's
+     idle share and top ops, peak memory, and the kernel (warm, flushed,
+     profiler) against its bound, its plain version and
+     ``F.embedding_bag`` at each of the ten calls the cells make.
 
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6 (short rehearsals); ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
-``launch/time_intersect_mask.py --calls``.
+``launch/time_intersect_mask.py --calls``; ``--bag-calls PATH`` phase 1
+and one call of each phase-6 cell, saving its ten ``embedding_bag``
+calls to ``PATH`` for ``launch/time_embedding_bag.py --calls``.
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -106,6 +110,7 @@ from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
 from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
                                         profiled_ms, profiled_total_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
+from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
@@ -1342,22 +1347,34 @@ def serve_call(cfg, spec, params, batch, dev="cuda"):
     return lambda: fwd(params, batch), LOOKUPS[cfg.interaction]
 
 
-def check_bag(name, got, table, idx, off, mode) -> float:
-    """The kernel's output against its plain version on one call's
-    inputs: bags of one row bit-identical (to the plain version and to
-    the table's rows), the others within ``BAG_ERR`` (normwise
-    relative).  Returns the max absolute difference."""
-    want = ref.embedding_bag_ref(table, idx, off, mode)
-    if got.dtype != torch.float32 or got.shape != want.shape:
+def check_bag(name, got, table, idx, off, mode, plain=True) -> float:
+    """The kernel's output on one call's inputs: bit-identical to the
+    in-order sum (``in_order_bags``: each bag from its first row, one
+    row at a time, the parent design's order) on every bag; and against
+    the plain version, bags of one row bit-identical (to the plain
+    version and to the table's rows), the others within ``BAG_ERR``
+    (normwise relative).  ``plain=False`` skips the plain version (a
+    malformed CSR: it assumes nondecreasing offsets, the kernel clamps
+    each bag's own).  Returns the max absolute difference from the
+    plain version."""
+    order = tbag.in_order_bags(table, idx, off, mode)
+    if got.dtype != torch.float32 or got.shape != order.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
-                             f"against {tuple(want.shape)}")
-    lens = (off[1:] - off[:-1]).long()
-    one = lens == 1
+                             f"against {tuple(order.shape)}")
+    if not torch.equal(got, order):
+        bad = int((got != order).any(1).sum())
+        raise AssertionError(f"{name}: {bad} bags differ from the in-order "
+                             f"sum")
+    if not plain:
+        return 0.0
+    want = ref.embedding_bag_ref(table, idx, off, mode)
+    lo, hi = tbag.bag_bounds(off, idx.numel())
+    one = (hi - lo) == 1
     if not torch.equal(got[one], want[one]):
         raise AssertionError(f"{name}: a single-row bag differs from the "
                              f"plain version")
-    if bool(one.all()) and idx.numel():
-        rows = table[idx.long().clamp(0, table.shape[0] - 1)].float()
+    if bool(one.all()) and one.numel():
+        rows = table[idx.long()[lo].clamp(0, table.shape[0] - 1)].float()
         if not torch.equal(got, rows):
             raise AssertionError(f"{name}: single-row bags are not the "
                                  f"table's rows bit for bit")
@@ -1370,9 +1387,14 @@ def check_bag(name, got, table, idx, off, mode) -> float:
 
 
 def synthetic_bags(seed: int) -> float:
-    """Check (b): the kernel against its plain version on synthetic CSR
-    bags: lengths 0-64, all-empty bags and N = 0, sum and mean, fp32 and
-    bf16 tables at D in {1, 10, 16, 18, 128}, ids out of range (clip)."""
+    """Check (b): the kernel against its plain version and the in-order
+    sum on synthetic CSR bags: lengths 0-64, all-empty bags and N = 0,
+    sum and mean, fp32 and bf16 tables at D in {1, 10, 16, 18, 128}, ids
+    out of range (clip); then ``tbag.edge_cases`` (bags longer than a
+    chunk, bags straddling its tiles, ``offsets[0] > 0``, a malformed
+    CSR, table views at odd rows and elements) and the ten path shapes
+    at a 100,000-row table (``tbag.path_shapes``), each called twice and
+    bit-equal."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     err, cases = 0.0, 0
@@ -1396,9 +1418,23 @@ def synthetic_bags(seed: int) -> float:
                         f"synthetic D={D} {dt} {len(lens)} bags {mode}",
                         got, table, idx, off, mode))
                     cases += 1
-    log(f"embedding_bag vs plain on synthetic bags: {cases} cases (D 1, "
-        f"10, 16, 18, 128; fp32 and bf16; lengths 0-64, all-empty, N = 0, "
-        f"single-row; ids out of range), max abs err {err:.3g}")
+    more = (tbag.edge_cases(seed=seed) + tbag.path_shapes(seed=seed))
+    for name, table, idx, off, mode in more:
+        got = ops.embedding_bag(table, idx, off, mode)
+        again = ops.embedding_bag(table, idx, off, mode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {mode}: two calls differ")
+        err = max(err, check_bag(f"{name} {mode}", got, table, idx, off,
+                                 mode, plain="malformed" not in name))
+    log(f"embedding_bag vs plain and in order on synthetic bags: {cases} "
+        f"cases (D 1, 10, 16, 18, 128; fp32 and bf16; lengths 0-64, "
+        f"all-empty, N = 0, single-row; ids out of range) and "
+        f"{len(more)} more (bags longer than a chunk and across its "
+        f"tiles, offsets[0] > 0, a malformed CSR, table views at odd rows "
+        f"and elements, the ten path shapes at 100,000 rows; each twice, "
+        f"bit-equal), every bag bit-equal to the in-order sum, max abs err "
+        f"from the plain version {err:.3g}")
     return err
 
 
@@ -1428,44 +1464,43 @@ def small_configs_against_cpu(seed: int) -> None:
         f"agree with the CPU within {SMALL_TOL}")
 
 
-def _bag_bytes(table, idx, off) -> int:
-    """Bytes the call must move: each distinct (clipped) row once, the
-    indices, the offsets and the fp32 output."""
-    R, D = table.shape
-    rows = torch.unique(idx.long().clamp(0, R - 1)).numel()
-    B = off.numel() - 1
-    return (rows * D * table.element_size() + idx.numel() * 4
-            + off.numel() * 4 + B * D * 4)
-
-
-def bag_timing(name, call) -> dict:
-    """The kernel, its plain version and the library yardstick
-    (``F.embedding_bag``, include_last_offset; timed only) on one
-    captured call of the path, and the call's byte bound."""
+def bag_timing(name, call, launches: int) -> dict:
+    """The kernel (warm, flushed: ``ms``, and by the profiler), its plain
+    version and the library yardstick (``F.embedding_bag``,
+    include_last_offset; timed only), flushed, on one captured call of
+    the path, and the call's byte bound."""
     table, idx, off, mode = call
+    R, D = table.shape
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    lib_idx = idx.clamp(0, table.shape[0] - 1)
+    lib_idx = idx.clamp(0, R - 1)
+
+    def kernel():
+        return ops.embedding_bag(table, idx, off, mode)
+    needed, every = tbag.bound_bytes(R, D, table.element_size(), idx, off)
+    lo, hi = tbag.bag_bounds(off, idx.numel())
     row = dict(
-        ms=cuda_ms_cold(lambda: ops.embedding_bag(table, idx, off, mode),
-                        flush),
+        launches=launches, ms=cuda_ms_cold(kernel, flush),
+        ms_warm=cuda_ms(kernel),
+        device_ms=profiled_ms(kernel, "embedding_bag")[0],
         plain_ms=cuda_ms_cold(
             lambda: ref.embedding_bag_ref(table, idx, off, mode), flush),
         library_ms=cuda_ms_cold(lambda: torch.nn.functional.embedding_bag(
             lib_idx, table, off, mode=mode, include_last_offset=True),
             flush),
-        bytes=_bag_bytes(table, idx, off))
-    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    every = (idx.numel() * table.shape[1] * table.element_size()
-             + idx.numel() * 4 + off.numel() * 4
-             + (off.numel() - 1) * table.shape[1] * 4)
-    row["shape"] = (f"{off.numel() - 1} bags, {idx.numel()} ids, table "
-                    f"{tuple(table.shape)} {str(table.dtype)[6:]}")
-    log(f"kernel embedding_bag at {name} ({row['shape']}): kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-        f"(F.embedding_bag) {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bytes']} bytes, distinct rows "
-        f"once; {every / HBM_BYTES_PER_S * 1e3:.4f} ms counting every "
-        f"looked-up row)")
+        bytes=needed, bound_ms=needed / HBM_BYTES_PER_S * 1e3,
+        bound_every_row_ms=every / HBM_BYTES_PER_S * 1e3,
+        shape=(f"{off.numel() - 1} bags x {float((hi - lo).float().mean()):g}"
+               f" rows, D {D}, {str(table.dtype)[6:]}, {mode}"))
+    dev = row["device_ms"]
+    log(f"kernel embedding_bag at {name} ({row['shape']}; {launches} "
+        f"launches a run): kernel {row['ms_warm']:.4f} ms warm, "
+        f"{row['ms']:.4f} flushed, "
+        f"{'not measured' if dev is None else f'{dev:.4f}'} by the "
+        f"profiler; "
+        f"plain {row['plain_ms']:.4f} ms, library (F.embedding_bag) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({needed} bytes, distinct rows once; "
+        f"{row['bound_every_row_ms']:.4f} ms counting every looked-up row)")
     return row
 
 
@@ -1575,27 +1610,73 @@ def phase_recsys(seed: int):
             r = recsys_cell(arch, shape, cfg, params, rng)
             launches += r["launches"]
             err = max(err, r["bag_err"])
-            key = (arch, shape)
-            if key in (("dcn-v2", "serve_bulk"), ("dlrm-mlperf",
-                                                   "serve_p99")):
-                # the one-id-per-field lookup
-                timing[key] = bag_timing(f"{arch} {shape}", r["captured"][0])
-            del r["captured"]
-            cells[f"{arch}/{shape}"] = r
+            cell = f"{arch}/{shape}"
+            sites = [s for c, s in tbag.PATH_SITES if c == cell]
+            for site, call in zip(sites, r.pop("captured")):
+                timing[f"{cell} {site}"] = bag_timing(
+                    f"{cell} {site}", call, r["launches"] // len(sites))
+            cells[cell] = r
             torch.cuda.empty_cache()
         del params, tb
         gc.collect()
         torch.cuda.empty_cache()
-    main = timing[("dcn-v2", "serve_bulk")]
-    log("recsys serving: " + json.dumps({
-        "cells": cells,
-        "kernel": {f"{a}/{s}": t for (a, s), t in timing.items()}}))
+    if len(timing) != len(tbag.PATH_SITES):
+        raise AssertionError(f"timed {len(timing)} embedding_bag calls, "
+                             f"expected {len(tbag.PATH_SITES)}")
+    gap = sum(t["launches"] * (t["ms"] - t["bound_ms"])
+              for t in timing.values())
+    log(f"embedding_bag over the ten path calls: launches x (flushed ms - "
+        f"bound ms) = {gap:.4f} ms a run")
+    main = timing["dcn-v2/serve_bulk " + tbag.PATH_SITES[1][1]]
+    log("recsys serving: " + json.dumps({"cells": cells, "kernel": timing}))
     return dict(
         name="embedding_bag", route="cuda", source=SOURCES["embedding_bag"],
         replaces=REPLACES["embedding_bag"], launches=launches,
         path="recsys_serve", max_abs_err=err, ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by="bytes", library_ms=main["library_ms"])
+
+
+def save_bag_calls(path: str, seed: int) -> None:
+    """``--bag-calls``: phase 6's cells, one entry-point call each, with
+    every ``embedding_bag`` call's inputs captured and saved to ``path``
+    (``tbag.save_calls``) for ``launch/time_embedding_bag.py --calls``;
+    the same batches as phase 6 (one generator from ``seed``, the cells
+    in order)."""
+    rng = np.random.default_rng(seed)
+    calls = []
+    for arch, shapes, change in RECSYS_CELLS:
+        cfg = dataclasses.replace(registry.get(arch).config, **change)
+        params = rsteps.init_params_for(registry.get(arch), cfg, seed=seed,
+                                        device="cuda")
+        for shape in shapes:
+            spec = registry.get_shape(arch, shape)
+            call, per_call = serve_call(cfg, spec, params,
+                                        recsys_batch(cfg, spec, rng))
+            cell = f"{arch}/{shape}"
+            sites = [s for c, s in tbag.PATH_SITES if c == cell]
+            got = []
+
+            def capture(table, idx, off, mode="sum"):
+                got.append(dict(
+                    cell=cell, site=sites[len(got)],
+                    table_shape=list(table.shape),
+                    table_dtype=str(table.dtype)[6:], mode=mode,
+                    launches=(WARM + TIMED + 2), indices=idx.cpu(),
+                    offsets=off.cpu()))
+                return real(table, idx, off, mode)
+            with bags_through(capture) as real:
+                call()
+            if len(got) != per_call:
+                raise AssertionError(f"{cell}: {len(got)} calls captured, "
+                                     f"expected {per_call}")
+            calls += got
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    size = tbag.save_calls(path, calls)
+    log(f"saved {len(calls)} embedding_bag calls of phase 6 to {path} "
+        f"({size / 2**20:.1f} MiB)")
 
 
 def main(argv=None) -> int:
@@ -1611,6 +1692,10 @@ def main(argv=None) -> int:
                     help="run only the build and phase 4, and save the "
                          "sequential route's intersect_mask inputs to PATH "
                          "(for launch/time_intersect_mask.py --calls)")
+    ap.add_argument("--bag-calls", default="", metavar="PATH",
+                    help="run only the build and phase 6's captures, and "
+                         "save its ten embedding_bag calls to PATH (for "
+                         "launch/time_embedding_bag.py --calls)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1623,11 +1708,14 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {build_s:.1f} s")
 
     table = []
+    saving = args.intersect_calls or args.bag_calls
     if args.intersect_calls:
         phase_small(args.intersect_calls)
+    elif args.bag_calls:
+        save_bag_calls(args.bag_calls, seed=0)
     elif not (args.paged_only or args.recsys_only):
         table = phase_index(args.segment_log2)
-    if not (args.recsys_only or args.intersect_calls):
+    if not (args.recsys_only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
         table.append(dict(
@@ -1640,7 +1728,7 @@ def main(argv=None) -> int:
             bound_by="bytes", library_ms=row["library_ms"]))
         log("paged serving: " + json.dumps(paged_sum))
         log(f"paged phase {time.perf_counter() - t0:.1f} s")
-    if not (args.paged_only or args.intersect_calls):
+    if not (args.paged_only or saving):
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")

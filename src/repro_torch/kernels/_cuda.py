@@ -43,7 +43,7 @@ _SIGNATURES = {
                                _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                _I64, _P],
     "embedding_bag_launch": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64,
-                             _I64, _P, _P],
+                             _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 _state = {"lib": None, "build_s": None}
@@ -123,6 +123,19 @@ def check(err: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sms = {}             # device index -> SM count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device`` (read once per device)."""
+    import torch
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -9,10 +9,17 @@ bags of one row, a pooled lookup is a bag of many rows.  Layout:
   offsets  int32[B+1] CSR bag boundaries
   out      [B, D]     fp32 sum (or mean: an empty bag divides by 1)
 
+Each bag sums from its first row, one row at a time in bag order, so the
+output is bit-identical from run to run and to a loop over the rows.
+The launch's shape (:func:`launch_plan`) is chosen here from the shapes,
+the table's base address and the SM count: the kernel only checks it.
+
 The plain torch version is ``kernels.ref.embedding_bag_ref``;
 ``kernels.ops.embedding_bag`` routes by the table's device.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -20,6 +27,60 @@ from repro_torch.kernels import _cuda
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 MODES = {"sum": 0, "mean": 1}
+WARPS = 8              # warps per CTA (kWarps in the source)
+CTAS_PER_SM = 3        # CTAs an SM holds at the kernel's register budget
+MAX_BAGS = 128         # bags per chunk at most (kMaxBags)
+ROWS_PER_LANE = 4      # rows each lane has in flight (kRows)
+MAX_VEC = 4            # table elements per load at most
+MAX_GRID = 1 << 20     # CTAs at most; their warps stride over the chunks
+
+
+@dataclass(frozen=True)
+class BagPlan:
+    """How one launch cuts its work (see ``csrc/embedding_bag.cu``)."""
+    vec_bytes: int       # bytes per row load: 16, 8, 4 or 2
+    vec: int             # table elements per load
+    lanes_per_row: int   # lanes that read one row side by side
+    groups: int          # rows a warp reads side by side
+    rows_per_lane: int   # rows each lane has in flight
+    bags_per_chunk: int  # consecutive bags one warp takes at a time
+    chunks: int
+    grid: int            # CTAs of WARPS warps
+
+
+def launch_plan(D: int, esize: int, base_ptr: int, n: int, B: int,
+                sms: int) -> BagPlan:
+    """The launch for a table of ``D`` columns of ``esize`` bytes at
+    address ``base_ptr``, ``n`` indices and ``B`` bags on ``sms`` SMs.
+
+    The row load is the widest of 16, 8, 4 and 2 bytes, at most
+    ``MAX_VEC`` elements, that divides the row's byte width and the base
+    address (a table view at an odd row or element takes a narrower
+    load), so every row's loads are aligned.  A chunk is one tile of rows
+    (groups x rows_per_lane) at the mean bag length ``n / B`` (shapes
+    only: no host sync), at most ``MAX_BAGS`` bags.  A call of few bags
+    takes one bag a warp when its bags are long; when its bags are single
+    rows and a tile a warp would need a little more than one wave of
+    CTAs, a warp takes two whole tiles (a second wave or a part-filled
+    tile costs a second chain of dependent loads)."""
+    vb = next((v for v in (16, 8, 4, 2)
+               if esize <= v <= MAX_VEC * esize and (D * esize) % v == 0
+               and base_ptr % v == 0), esize)
+    vec = vb // esize
+    lanes = min(32, -(-D // vec))
+    groups = 32 // lanes
+    mean_len = n / max(B, 1)
+    tile = groups * ROWS_PER_LANE
+    per_chunk = min(max(int(tile / max(mean_len, 1.0)), 1), MAX_BAGS)
+    one_wave = -(-B // (CTAS_PER_SM * sms * WARPS))
+    if mean_len > 1:
+        per_chunk = max(1, min(per_chunk, one_wave))
+    elif per_chunk < one_wave <= 2 * per_chunk:
+        per_chunk = min(2 * per_chunk, MAX_BAGS)   # two whole tiles
+    chunks = -(-B // per_chunk)
+    grid = max(1, min(-(-chunks // WARPS), MAX_GRID))
+    return BagPlan(vb, vec, lanes, groups, ROWS_PER_LANE, per_chunk, chunks,
+                   grid)
 
 
 def embedding_bag(table, indices, offsets, mode: str = "sum"):
@@ -43,10 +104,13 @@ def embedding_bag(table, indices, offsets, mode: str = "sum"):
         return out
     if R == 0:
         raise ValueError(f"{name}: an empty table has no row to read")
+    plan = launch_plan(D, table.element_size(), table.data_ptr(),
+                       indices.shape[0], B, _cuda.sm_count(table.device))
     embedding_bag.launches += 1
     err = _cuda.lib().embedding_bag_launch(
         table.data_ptr(), _BF16[table.dtype], indices.data_ptr(),
         indices.shape[0], offsets.data_ptr(), B, R, D, MODES[mode],
+        plan.vec_bytes, plan.lanes_per_row, plan.bags_per_chunk, plan.grid,
         out.data_ptr(), _cuda.stream_ptr(table.device))
     _cuda.check(err, name)
     return out

@@ -28,7 +28,6 @@ HEADS = 8             # query heads per CTA (the tensor-core tile's n)
 CTAS_PER_SM = 4       # the grid the split rule aims at
 MAX_SPLITS = 64       # the kernel's merge stages S x 8 weights
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
-_sms = {}             # device index -> SM count
 _counters = {}        # (device index, stream) -> int32 zeros, one per unit
 
 
@@ -48,13 +47,6 @@ def split_plan(B: int, Hkv: int, G: int, NP: int, sms: int):
 def _index(device) -> int:
     return device.index if device.index is not None else \
         torch.cuda.current_device()
-
-
-def _sm_count(device) -> int:
-    idx = _index(device)
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
 
 
 def _zeroed_counters(device, stream: int, n: int):
@@ -104,7 +96,7 @@ def paged_attention(q, k_heap, v_heap, page_table, lengths):
         return out
     if NP == 0:
         return out.zero_()
-    S, pps = split_plan(B, Hkv, G, NP, _sm_count(q.device))
+    S, pps = split_plan(B, Hkv, G, NP, _cuda.sm_count(q.device))
     units = B * Hkv * -(-G // HEADS)
     stream = _cuda.stream_ptr(q.device)
     ws = counters = None

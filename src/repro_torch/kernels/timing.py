@@ -1,10 +1,10 @@
 """Device timers for the port's kernels: CUDA events and the profiler.
 
-``chip_smoke.py``, ``launch/time_paged_attention.py`` and
-``launch/time_intersect_mask.py`` time every kernel with these, so two
-checkouts timed in one call share one yardstick.  This module imports
-nothing but torch: the A/B scripts load it by path beside another
-checkout's ``repro_torch``.
+``chip_smoke.py``, ``launch/time_paged_attention.py``,
+``launch/time_intersect_mask.py`` and ``launch/time_embedding_bag.py``
+time every kernel with these, so two checkouts timed in one call share
+one yardstick.  This module imports nothing but torch: the A/B scripts
+load it by path beside another checkout's ``repro_torch``.
 
 The event timers first put the device to sleep while the host queues the
 timed launches (the head start), so a call shorter than its host-side
@@ -84,29 +84,37 @@ def cuda_ms_cold(fn, flush, reps: int = 10, warmup: int = 2) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / reps
 
 
-def profiled_ms(fn, match: str, reps: int = 10, warmup: int = 2):
+def profiled_ms(fn, match: str, reps: int = 10, warmup: int = 2,
+                sessions: int = 3):
     """Mean device duration of the kernels whose name holds ``match``,
     one per call of ``fn``, from the profiler's own kernel records (no
     host clock, no events between launches): ``(ms, n)`` over the last
     ``reps`` such kernels, or ``(None, n)`` when the profiler recorded
-    fewer than ``reps`` of them."""
+    fewer than ``reps`` of them in each of ``sessions`` tries.  A
+    session opens with 64 one-element fills and one call, which absorb
+    the device events a session late in a process may drop (21 seen, and
+    once every event of a short session)."""
     from torch.profiler import ProfilerActivity, profile
     _warm(fn, warmup)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()                       # absorbs events a session may drop
+    pad = torch.empty(1, device="cuda")
+    for _ in range(sessions):
         torch.cuda.synchronize()
-        for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.zero_()
             fn()
-        torch.cuda.synchronize()
-    ks = sorted((e.time_range.start, e.device_time_total)
-                for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and match in e.name)
-    if len(ks) < reps:
-        return None, len(ks)
-    return sum(t for _, t in ks[-reps:]) / reps / 1e3, len(ks)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = sorted((e.time_range.start, e.device_time_total)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and match in e.name)
+        if len(ks) >= reps:
+            return sum(t for _, t in ks[-reps:]) / reps / 1e3, len(ks)
+    return None, len(ks)
 
 
 def profiled_total_ms(fn, match: str, reps: int = 1, warmup: int = 1):

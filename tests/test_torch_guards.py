@@ -63,6 +63,7 @@ def test_guard_sees_every_port_module():
                  "paged_attention.py", "kv_cache.py", "serve_model.py",
                  "serve.py", "transformer.py", "layers.py", "registry.py",
                  "embedding_bag.py", "recsys.py", "steps.py",
+                 "time_embedding_bag.py",
                  "other_archs.py", "base.py"):
         assert must in names
 
@@ -292,7 +293,11 @@ def test_embedding_bag_kernel_matches_plain_version_on_the_card():
     """The embedding-bag CUDA kernel against its plain version: fp32 and
     bf16 tables at the recsys widths D in {1, 10, 16, 18, 128}, bags of
     0 to 64 rows, all-empty bags, N = 0, ids out of range (clipped), sum
-    and mean; bags of one row bit-identical to the table's rows."""
+    and mean; bags of one row bit-identical to the table's rows.  Then
+    the kernel's edge cases (bags longer than a chunk and across its
+    tiles, offsets[0] > 0, a malformed CSR, table views at odd rows and
+    elements) and the ten path shapes at 100,000 rows: each call twice,
+    bit-equal, and bit-equal to the in-order sum on every bag."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops, ref
@@ -319,3 +324,14 @@ def test_embedding_bag_kernel_matches_plain_version_on_the_card():
                             got, table[idx.long().clamp(0, R - 1)].float())
                     torch.testing.assert_close(got, want, rtol=1e-5,
                                                atol=1e-5)
+    from repro_torch.launch import time_embedding_bag as tbag
+    for name, table, idx, off, mode in (tbag.edge_cases(seed=3)
+                                        + tbag.path_shapes(seed=3)):
+        got = ops.embedding_bag(table, idx, off, mode)
+        assert torch.equal(got, ops.embedding_bag(table, idx, off, mode))
+        assert torch.equal(got, tbag.in_order_bags(table, idx, off, mode)), \
+            name
+        lo, hi = tbag.bag_bounds(off, idx.numel())
+        one = (hi - lo) == 1
+        assert torch.equal(got[one], table[idx.long()[lo[one]].clamp(
+            0, table.shape[0] - 1)].float()), name
