@@ -7,13 +7,16 @@ Phases, in order (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi``), torch/CUDA versions, the kernel build;
   2. every CUDA kernel against its plain torch version on the card, at
-     the main path's shapes, bit for bit (the scored kernel at three
-     thresholds: none, about half the blocks skipped, all skipped;
+     the main path's shapes, bit for bit (the two frozen-segment kernels
+     twice on each edge case of ``launch/time_segment_intersect.py`` and
+     twice at the path's shapes, the scored kernel at three thresholds:
+     none, about half the blocks skipped, all skipped;
      ``intersect_mask`` twice on each of its edge cases and on three
      pairs padded to max_len: head vs torso, torso vs head, head vs an
      all-pad list) — plus its time, the plain version's, one library
-     call's and the bound the card's memory rate sets (for
-     ``intersect_mask`` also L2-flushed and by the profiler);
+     call's and the bound the card's memory rate sets (for the segment
+     kernels and ``intersect_mask`` also L2-flushed and by the
+     profiler);
   3. the main path at full width: a Zipf(1.0) tweet stream over a 2**20
      term vocabulary into Earlybird's 2**23-tweet segment under the
      paper's production pools Z^g = <1, 4, 7, 11>, in 4096-tweet arrival
@@ -69,9 +72,14 @@ Phases, in order (any failure raises and exits non-zero):
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6 (short rehearsals); ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
-``launch/time_intersect_mask.py --calls``; ``--bag-calls PATH`` phase 1
-and one call of each phase-6 cell, saving its ten ``embedding_bag``
-calls to ``PATH`` for ``launch/time_embedding_bag.py --calls``.
+``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
+phases 1, 3 and 4, saving the main path's 8 + 8
+``segment_intersect_mask_batched`` and ``scored_intersect_batched``
+inputs and the sequential route's ``segment_intersect_mask`` inputs to
+``PATH`` for ``launch/time_segment_intersect.py --calls``;
+``--bag-calls PATH`` phase 1 and one call of each phase-6 cell, saving
+its ten ``embedding_bag`` calls to ``PATH`` for
+``launch/time_embedding_bag.py --calls``.
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -107,11 +115,13 @@ from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
+from repro_torch.kernels import segment_intersect as si  # noqa: E402
 from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
                                         profiled_ms, profiled_total_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
+from repro_torch.launch import time_segment_intersect as tsg  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
@@ -273,69 +283,37 @@ def query_batch(docs, vocab: int, n: int, seed: int):
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at main-path shapes
 # ---------------------------------------------------------------------------
-def _lists(rng, n_docs: int, densities):
-    """Ascending docid sets of the given densities over one segment."""
-    out = []
-    for p in densities:
-        if p <= 0:
-            out.append(np.zeros(0, np.uint32))
-            continue
-        m = rng.random(n_docs) < p
-        out.append(np.nonzero(m)[0].astype(np.uint32))
-    return out
+def segment_edge_cases() -> int:
+    """The two frozen-segment kernels on the card against their plain
+    versions on the edge cases of ``launch/time_segment_intersect.py``
+    (docids at a b-block's first, last and in a gap; an a-block that
+    needs 128 b-blocks, a window wider than a block, a-blocks that need
+    none; many a-blocks on one b-block; bw 1, 2 and 4 in a row;
+    part-filled blocks; ns = 0 rows, an empty b; NB = 1 and 4,096; 1 and
+    64 rows; docids 0, 0xFFFFFFFE and INVALID): the batched call, each
+    row as a single pair, and the scored call at three thresholds (255 +
+    255 hits, b impacts of 0, a bound that wraps): bit for bit, twice.
+    Returns the count of cases."""
+    cases = [("segment_intersect_mask_batched", n, (a, b))
+             for n, a, b in tsg.edge_stacks(si)]
+    cases += [("segment_intersect_mask", n, (a, b))
+              for n, a, b in tsg.edge_pairs(si)]
+    cases += [("scored_intersect_batched", n, (a, b, rest, th))
+              for n, a, b, rest, th in tsg.scored_edge_cases(si)]
+    for kernel, name, args in cases:
+        want = getattr(ref, kernel + "_ref")(*args)
+        for k in range(2):
+            require_equal(f"{kernel}/{name} (call {k})",
+                          getattr(ops, kernel)(*args), want)
+    torch.cuda.synchronize()
+    return len(cases)
 
 
-def _touched_bytes(a_ids, b, extra: int = 0):
-    """Bytes of the distinct b-blocks some valid a-lane can match (the
-    kernel's data-dependent reads: block entry + 32*bw int64 words, plus
-    ``extra`` bytes per block)."""
-    rows, nb = b.firsts.shape
-    valid = a_ids != 0xFFFFFFFF
-    j = torch.searchsorted(b.firsts.contiguous(), a_ids.contiguous(),
-                           right=True) - 1
-    j = torch.minimum(j, ((b.ns.long() - 1) // SEG_BLOCK)[:, None])
-    ok = valid & (j >= 0) & (b.ns[:, None] > 0)
-    key = torch.unique((torch.arange(rows, device=a_ids.device)[:, None]
-                        * nb + j)[ok])
-    bw = b.bws.reshape(-1)[key].long()
-    return int((16 + 32 * bw * 8 + extra).sum())
-
-
-def _list_bytes(bws, ns) -> int:
-    """Bytes of the real (non-pad) blocks of a stack: block tables plus
-    32*bw int64 payload words each."""
-    nblk = (ns.long() + SEG_BLOCK - 1) // SEG_BLOCK
-    real = (torch.arange(bws.shape[-1], device=bws.device)[None, :]
-            < nblk[:, None])
-    return int(((16 + 32 * bws.long() * 8) * real).sum())
-
-
-def _scored_bytes(a, b, a_ids, live_blk) -> int:
-    """Bytes the scored kernel must move: per real a-block its block
-    entry and bmax (20 bytes); per live a-block its 32*bw payload and 32
-    score words (int64 each); per b-block a live lane can match, its
-    block entry, payload and score words; the int32 output."""
-    nb = a.ids.firsts.shape[1]
-    nblk = (a.ids.ns.long() + SEG_BLOCK - 1) // SEG_BLOCK
-    real = torch.arange(nb, device=a_ids.device)[None, :] < nblk[:, None]
-    live = real & live_blk
-    a_live = torch.where(live.repeat_interleave(SEG_BLOCK, dim=1), a_ids,
-                         torch.full_like(a_ids, 0xFFFFFFFF))
-    per_live = (32 * a.ids.bws.long() + 32) * 8
-    return (int(20 * real.sum()) + int((per_live * live).sum())
-            + _touched_bytes(a_live, b.ids, extra=32 * 8)
-            + a_ids.numel() * 4)
-
-
-def _split_threshold(bound: np.ndarray, n_real: int) -> int:
-    """The threshold that skips the share of a row's real blocks closest
-    to one half (a block survives when its bound exceeds it)."""
-    real = bound[:n_real]
-    if real.size == 0:
-        return -1
-    cands = np.unique(real)
-    skip = np.array([(real <= c).mean() for c in cands])
-    return int(cands[np.argmin(np.abs(skip - 0.5))])
+def segment_times(kernel: str, call, flush) -> dict:
+    """Warm, L2-flushed and profiler times of one frozen-segment call."""
+    dev_ms, seen = profiled_ms(call, tsg.KERNEL_NAMES[kernel])
+    return dict(ms=cuda_ms(call), ms_cold=cuda_ms_cold(call, flush),
+                device_ms=dev_ms, kernels_seen=seen)
 
 
 def intersect_edge_cases() -> int:
@@ -421,10 +399,12 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
     # -- the segment kernels on lists shaped like a full segment's ------
     # a query batch's driving pairs: a head term, torso and tail terms,
     # a pad row (empty list); densities give bw 1, 2 and 4 blocks
-    dens_a = [0.55, 0.06, 0.004, 0.0004, 3e-5, 2e-6, 0.0, 0.3][:q_rows]
-    dens_b = [0.3, 0.5, 0.02, 0.55, 0.001, 0.2, 0.4, 0.0][:q_rows]
-    la = _lists(rng, seg_docs, dens_a)
-    lb = _lists(rng, seg_docs, dens_b)
+    n_seg_edge = segment_edge_cases()
+    log(f"frozen-segment kernels: {n_seg_edge} edge cases bit-identical "
+        f"twice")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    la = tsg.segment_lists(rng, seg_docs, tsg.DENS_A[:q_rows])
+    lb = tsg.segment_lists(rng, seg_docs, tsg.DENS_B[:q_rows])
     pa = [pack_docids(x) for x in la]
     pb = [pack_docids(x) for x in lb]
     bws = np.concatenate([np.asarray(p.bws[: -(-p.n // SEG_BLOCK)])
@@ -434,44 +414,48 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
                              f"{sorted(set(bws.tolist()))}")
     sa = stack_packed(pa).to(dev)
     sb = stack_packed(pb).to(dev)
-    got = ops.segment_intersect_mask_batched(sa, sb)
     want = ref.segment_intersect_mask_batched_ref(sa, sb)
-    torch.cuda.synchronize()
-    err = require_equal("segment_intersect_mask_batched", got, want)
+    for k in range(2):
+        got = ops.segment_intersect_mask_batched(sa, sb)
+        torch.cuda.synchronize()
+        err = require_equal(f"segment_intersect_mask_batched (call {k})",
+                            got, want)
     a_ids, b_ids = decode_stacked(sa), decode_stacked(sb)
     rows["segment_intersect_mask_batched"] = dict(
-        ms=cuda_ms(lambda: ops.segment_intersect_mask_batched(sa, sb)),
+        **segment_times("segment_intersect_mask_batched",
+                        lambda: ops.segment_intersect_mask_batched(sa, sb),
+                        flush),
         plain_ms=cuda_ms(
             lambda: ref.segment_intersect_mask_batched_ref(sa, sb)),
         library_ms=cuda_ms(lambda: torch.gather(
             b_ids, 1, torch.searchsorted(b_ids, a_ids).clamp_(
                 max=b_ids.shape[1] - 1)) == a_ids),
-        bytes=_list_bytes(sa.bws, sa.ns) + _touched_bytes(a_ids, sb)
-        + got.numel() * 4, max_abs_err=err,
+        bytes=tsg.batched_bytes(si, sa, sb), max_abs_err=err,
         hits=int(got.sum()),
         shape=f"N={sa.firsts.shape[0]} rows, NB={sa.n_blocks} blocks "
               f"(W={sa.n_blocks * SEG_BLOCK}), PW={sa.n_words}")
+    del a_ids, b_ids
 
     # -- single pair: the head list against a torso list ---------------
-    a1, b1 = pa[0].to(dev), pb[2].to(dev)
-    got = ops.segment_intersect_mask(a1, b1)
+    a1, b1 = pa[tsg.SINGLE[0]].to(dev), pb[tsg.SINGLE[1]].to(dev)
     want = ref.segment_intersect_mask_ref(a1, b1)
-    torch.cuda.synchronize()
-    err = require_equal("segment_intersect_mask", got, want)
+    for k in range(2):
+        got = ops.segment_intersect_mask(a1, b1)
+        torch.cuda.synchronize()
+        err = require_equal(f"segment_intersect_mask (call {k})", got,
+                            want)
     d_a, d_b = decode_packed(a1), decode_packed(b1)
-    s1a, s1b = stack_packed([pa[0]]).to(dev), stack_packed([pb[2]]).to(dev)
     rows["segment_intersect_mask"] = dict(
-        ms=cuda_ms(lambda: ops.segment_intersect_mask(a1, b1)),
+        **segment_times("segment_intersect_mask",
+                        lambda: ops.segment_intersect_mask(a1, b1), flush),
         plain_ms=cuda_ms(lambda: ref.segment_intersect_mask_ref(a1, b1)),
         library_ms=cuda_ms(lambda: torch.gather(
             d_b, 0, torch.searchsorted(d_b, d_a).clamp_(
                 max=d_b.shape[0] - 1)) == d_a),
-        bytes=_list_bytes(s1a.bws, s1a.ns)
-        + _touched_bytes(decode_stacked(s1a), s1b) + got.numel() * 4,
-        max_abs_err=err,
+        bytes=tsg.single_bytes(si, a1, b1), max_abs_err=err,
         hits=int(got.sum()),
-        shape=f"a {pa[0].n} docids in {pa[0].n_blocks} blocks, b "
-              f"{pb[2].n} in {pb[2].n_blocks}")
+        shape=f"a {a1.n} docids in {a1.n_blocks} blocks, b "
+              f"{b1.n} in {b1.n_blocks}")
 
     # -- scored_intersect_batched: the same rows with tf impacts --------
     # impacts min(tf, 255) drawn from the stream's head term's per-tweet
@@ -483,30 +467,29 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
 
     def impacts(n):
         return np.minimum(rng.choice(tfs, n), SCORE_MAX).astype(np.int32)
-    sca = stack_scored([attach_scores(p, impacts(p.n)) for p in pa]).to(dev)
-    scb = stack_scored([attach_scores(p, impacts(p.n)) for p in pb]).to(dev)
+    sca = stack_scored([attach_scores(p, impacts(p.n)) for p in pa])
+    scb = stack_scored([attach_scores(p, impacts(p.n)) for p in pb])
     rows_n = sca.bmax.shape[0]
-    rest = torch.as_tensor(rng.integers(0, 8, rows_n), dtype=torch.int32,
-                           device=dev)
+    rest_np = rng.integers(0, 8, rows_n).astype(np.int32)
+    ths = tsg.thresholds(sca.bmax, rest_np, sca.ids.ns)
+    sca, scb = sca.to(dev), scb.to(dev)
+    rest = torch.as_tensor(rest_np, device=dev)
     bound = (sca.bmax.long() + rest.long()[:, None]).cpu().numpy()
     nreal = (-(-sca.ids.ns.cpu().numpy() // SEG_BLOCK)).astype(np.int64)
-    ths = {"none": np.full(rows_n, -1),
-           "half": np.array([_split_threshold(bound[r], nreal[r])
-                             for r in range(rows_n)]),
-           "all": bound.max(1) + 1}
     err, skipped, runs = 0, {}, {}
     for name, th in ths.items():
-        th = torch.as_tensor(th, dtype=torch.int32, device=dev)
-        got = ops.scored_intersect_batched(sca, scb, rest, th)
+        th = torch.as_tensor(th, device=dev)
         want = ref.scored_intersect_batched_ref(sca, scb, rest, th)
-        torch.cuda.synchronize()
-        err = max(err, require_equal(f"scored_intersect_batched/{name}",
-                                     got, want))
+        for k in range(2):
+            got = ops.scored_intersect_batched(sca, scb, rest, th)
+            torch.cuda.synchronize()
+            err = max(err, require_equal(
+                f"scored_intersect_batched/{name} (call {k})", got, want))
         live_blk = torch.as_tensor(bound, device=dev) > th.long()[:, None]
         skipped[name] = float(1 - (live_blk.cpu().numpy()[
             np.arange(bound.shape[1])[None, :] < nreal[:, None]]).mean())
-        runs[name] = (th, live_blk, int((got > 0).sum()))
-    th0, live0, hits0 = runs["none"]
+        runs[name] = (th, int((got > 0).sum()))
+    th0, hits0 = runs["none"]
     if not 0.2 <= skipped["half"] <= 0.8 or skipped["all"] != 1.0:
         raise AssertionError(f"scored thresholds skip {skipped}")
     a_ids, b_ids = decode_stacked(sca.ids), decode_stacked(scb.ids)
@@ -517,25 +500,38 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         hit = torch.gather(b_ids, 1, pos) == a_ids
         return torch.where(hit, a_sc + torch.gather(b_sc, 1, pos), 0)
     th_half = runs["half"][0]
-    ms_half = cuda_ms(lambda: ops.scored_intersect_batched(sca, scb, rest,
-                                                           th_half))
+    half = segment_times(
+        "scored_intersect_batched",
+        lambda: ops.scored_intersect_batched(sca, scb, rest, th_half), flush)
     rows["scored_intersect_batched"] = dict(
-        ms=cuda_ms(lambda: ops.scored_intersect_batched(sca, scb, rest,
-                                                        th0)),
-        ms_half=ms_half,
+        **segment_times("scored_intersect_batched",
+                        lambda: ops.scored_intersect_batched(sca, scb, rest,
+                                                             th0), flush),
+        half=half,
         plain_ms=cuda_ms(lambda: ref.scored_intersect_batched_ref(
             sca, scb, rest, th0)),
         library_ms=cuda_ms(library),
-        bytes=_scored_bytes(sca, scb, a_ids, live0), max_abs_err=err,
+        bytes=tsg.scored_bytes(si, sca, scb, th0, rest), max_abs_err=err,
         hits=hits0,
         shape=f"N={rows_n} rows, NB={sca.ids.n_blocks} blocks, the "
               f"segment rows with impacts from term {head}'s tf "
               f"(max {int(tfs.max())}); th=-1 (main path); blocks "
               f"skipped at the three thresholds "
               f"{', '.join(f'{k} {v:.3f}' for k, v in skipped.items())}; "
-              f"kernel at the half threshold {ms_half:.4f} ms")
-    del sca, scb, a_ids, b_ids, a_sc, b_sc, runs
+              f"kernel at the half threshold {half['ms']:.4f} ms warm, "
+              f"{half['ms_cold']:.4f} L2-flushed, "
+              + ("profiler not measured" if half["device_ms"] is None else
+                 f"{half['device_ms']:.4f} by the profiler"))
+    del sca, scb, a_ids, b_ids, a_sc, b_sc, runs, flush
     torch.cuda.empty_cache()
+    for name in ("segment_intersect_mask_batched", "segment_intersect_mask",
+                 "scored_intersect_batched"):
+        r = rows[name]
+        log(f"{name}: bit-identical twice; kernel {r['ms']:.4f} ms warm, "
+            f"{r['ms_cold']:.4f} L2-flushed, "
+            + ("profiler not measured" if r["device_ms"] is None else
+               f"{r['device_ms']:.4f} by the profiler")
+            + f" ({r['kernels_seen']} kernels seen)")
 
     # -- intersect_mask: edge cases, then active lists at max_len -------
     n_edge = intersect_edge_cases()
@@ -1224,8 +1220,9 @@ def phase_small(save_calls: str = "") -> dict:
                                 tmp=tmp, save_calls=save_calls)
 
 
-def phase_index(segment_log2: int):
-    """Phases 2-4 (the streaming index); returns their kernel rows."""
+def index_stream(segment_log2: int):
+    """The main path's tweet stream and pools: ``(docs, layout, vocab,
+    seg_docs, extra, fmax)``."""
     seg_docs = 1 << segment_log2
     vocab = 1 << (segment_log2 - 3)
     extra = seg_docs // 8
@@ -1238,7 +1235,64 @@ def phase_index(segment_log2: int):
         f"{fmax}; pools {layout.slices_per_pool} slices for an analytic "
         f"need of {tuple(int(x) for x in need)} ({layout.total_slots} "
         f"slots); made in {time.perf_counter() - t0:.1f} s")
+    return docs, layout, vocab, seg_docs, extra, fmax
 
+
+@contextlib.contextmanager
+def capturing(store: dict, *names):
+    """Route each ``ops.<name>`` through a spy that keeps every call's
+    inputs on the host (``tsg.to_host``) in ``store[name]`` and launches
+    once."""
+    reals = {n: getattr(ops, n) for n in names}
+
+    def spy(name):
+        def call(*args):
+            store.setdefault(name, []).append([tsg.to_host(a) for a in args])
+            return reals[name](*args)
+        return call
+    for n in names:
+        setattr(ops, n, spy(n))
+    try:
+        yield store
+    finally:
+        for n, fn in reals.items():
+            setattr(ops, n, fn)
+
+
+def save_segment_calls(path: str, segment_log2: int) -> None:
+    """``--segment-calls``: phase 3 (the main path at full width) and
+    phase 4 with the frozen-segment kernels' inputs captured: the main
+    path's ``segment_intersect_mask_batched`` and
+    ``scored_intersect_batched`` calls (the ones its launch counts
+    count; the traced batches after them are left out) and the
+    sequential route's ``segment_intersect_mask`` calls, saved to
+    ``path`` for ``launch/time_segment_intersect.py --calls``."""
+    docs, layout, vocab, seg_docs, extra, fmax = index_stream(segment_log2)
+    calls = {}
+    main_k = ("segment_intersect_mask_batched", "scored_intersect_batched")
+    with capturing(calls, *main_k):
+        main_sum = phase_main(docs, layout, vocab, seg_docs, extra, 8,
+                              n_queries=64, fmax=fmax)
+    for k in main_k:
+        calls[k] = calls.get(k, [])[: main_sum["launches"][k]]
+    del docs
+    seq = {}
+    with capturing(seq, "segment_intersect_mask"):
+        counts = phase_small()
+    calls["segment_intersect_mask"] = seq.get("segment_intersect_mask", [])
+    for k, v in calls.items():
+        want = (main_sum["launches"] if k in main_k else counts)[k]
+        if len(v) != want or not v:
+            raise AssertionError(f"{k}: {len(v)} calls captured, {want} "
+                                 f"launches counted")
+    size = tsg.save_calls(path, calls)
+    log(f"saved {', '.join(f'{len(v)} {k}' for k, v in calls.items())} "
+        f"calls to {path} ({size / 2**20:.1f} MiB)")
+
+
+def phase_index(segment_log2: int):
+    """Phases 2-4 (the streaming index); returns their kernel rows."""
+    docs, layout, vocab, seg_docs, extra, fmax = index_stream(segment_log2)
     q_rows = 8
     kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows, seed=5)
     main_sum = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
@@ -1692,6 +1746,10 @@ def main(argv=None) -> int:
                     help="run only the build and phase 4, and save the "
                          "sequential route's intersect_mask inputs to PATH "
                          "(for launch/time_intersect_mask.py --calls)")
+    ap.add_argument("--segment-calls", default="", metavar="PATH",
+                    help="run only the build, phase 3 and phase 4, and save "
+                         "the frozen-segment kernels' inputs to PATH (for "
+                         "launch/time_segment_intersect.py --calls)")
     ap.add_argument("--bag-calls", default="", metavar="PATH",
                     help="run only the build and phase 6's captures, and "
                          "save its ten embedding_bag calls to PATH (for "
@@ -1708,9 +1766,11 @@ def main(argv=None) -> int:
     log(f"kernels built and loaded in {build_s:.1f} s")
 
     table = []
-    saving = args.intersect_calls or args.bag_calls
+    saving = args.intersect_calls or args.bag_calls or args.segment_calls
     if args.intersect_calls:
         phase_small(args.intersect_calls)
+    elif args.segment_calls:
+        save_segment_calls(args.segment_calls, args.segment_log2)
     elif args.bag_calls:
         save_bag_calls(args.bag_calls, seed=0)
     elif not (args.paged_only or args.recsys_only):

@@ -63,7 +63,7 @@ def test_guard_sees_every_port_module():
                  "paged_attention.py", "kv_cache.py", "serve_model.py",
                  "serve.py", "transformer.py", "layers.py", "registry.py",
                  "embedding_bag.py", "recsys.py", "steps.py",
-                 "time_embedding_bag.py",
+                 "time_embedding_bag.py", "time_segment_intersect.py",
                  "other_archs.py", "base.py"):
         assert must in names
 
@@ -155,6 +155,21 @@ def test_kernels_match_plain_versions_on_the_card():
     p, q = pack_docids(ids[2]).to(dev), pack_docids(ids[1]).to(dev)
     assert torch.equal(ops.segment_intersect_mask(p, q),
                        ref.segment_intersect_mask_ref(p, q))
+    # the frozen-segment kernels' edge cases (block firsts, lasts and gaps,
+    # 128 b-blocks for one a-block, wide windows, many a-blocks on one
+    # b-block, mixed widths, empty rows and lists, NB 1 and 4,096, 1 and
+    # 64 rows, extreme docids), batched and as single pairs, each twice
+    from repro_torch.kernels import segment_intersect as si
+    from repro_torch.launch import time_segment_intersect as tsg
+    for name, a_, b_ in tsg.edge_stacks(si, device=dev):
+        want = ref.segment_intersect_mask_batched_ref(a_, b_)
+        for _ in range(2):
+            assert torch.equal(ops.segment_intersect_mask_batched(a_, b_),
+                               want), name
+    for name, p_, q_ in tsg.edge_pairs(si, device=dev):
+        want = ref.segment_intersect_mask_ref(p_, q_)
+        for _ in range(2):
+            assert torch.equal(ops.segment_intersect_mask(p_, q_), want), name
     x = torch.full((2, 512), 0xFFFFFFFF, dtype=torch.int64, device=dev)
     y = x.clone()
     x[:, :300] = torch.arange(0, 600, 2)
@@ -191,7 +206,8 @@ def test_kernels_match_plain_versions_on_the_card():
 @pytest.mark.cuda
 def test_scored_kernel_matches_plain_version_on_the_card():
     """The scored CUDA kernel against its plain version, bit for bit, at
-    thresholds that skip no block, some blocks and every block."""
+    thresholds that skip no block, some blocks and every block, and on
+    the edge cases of ``launch/time_segment_intersect.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops, ref
@@ -218,6 +234,15 @@ def test_scored_kernel_matches_plain_version_on_the_card():
         torch.cuda.synchronize()
         assert torch.equal(got, ref.scored_intersect_batched_ref(
             a, b, rest, th))
+    # the edge cases at three thresholds each (255 + 255 hits, b impacts
+    # of 0, a bound that wraps in int32), each twice
+    from repro_torch.kernels import segment_intersect as si
+    from repro_torch.launch import time_segment_intersect as tsg
+    for name, a_, b_, r_, t_ in tsg.scored_edge_cases(si, device="cuda"):
+        want = ref.scored_intersect_batched_ref(a_, b_, r_, t_)
+        for _ in range(2):
+            assert torch.equal(ops.scored_intersect_batched(a_, b_, r_, t_),
+                               want), name
 
 
 @pytest.mark.cuda
