@@ -67,10 +67,31 @@ Phases, in order (any failure raises and exits non-zero):
      against the CPU.  Reports ms per batch, samples/s, a traced batch's
      idle share and top ops, peak memory, and the kernel (warm, flushed,
      profiler) against its bound, its plain version and
-     ``F.embedding_bag`` at each of the ten calls the cells make.
+     ``F.embedding_bag`` at each of the ten calls the cells make;
+  7. search serving through the port's ``ServeLoop``: (a) phase 3's
+     full-width engine behind the reference's ``ServeConfig`` and an
+     ingest journal takes 2**20 more tweets in 4096-tweet batches
+     between requests of every kind, each rung of the degradation
+     ladder forced in turn and then the gauge (a burst meets the ingest
+     queue's backpressure); every response is held against the brute
+     force over the docs applied before its dispatch, sliced per rung,
+     every acked batch is read back from the journal, and
+     ``check_serve`` and ``check_engine`` run on the final state; (c)
+     the paper's Table 2: phase 3's frozen segment is the history H, a
+     fresh 2**23-tweet stream over the same dictionary is indexed into
+     one segment under each SP policy (pools sized from its own start
+     table): overflow 0 and slots equal to ``memory_slots_sp``, with the
+     waste against SP(z0) and the top-10,000 churn; (b) after phase 4,
+     at its 2**16-tweet segments, a ``validate=True`` engine behind the
+     loop dies inside a rollover with requests in flight, is recovered
+     on the card and resumed (every acked batch read back, fingerprint
+     equal to an uncrashed engine's), and every ``FaultPlan`` kind runs
+     with ``device="cuda"``.  Phases 7a and 7c run right after phase 3,
+     on its engine and its stream.
 
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
-and 6 (short rehearsals); ``--intersect-calls PATH`` phases 1 and 4,
+and 6, ``--serve-only`` phases 1, 3 and 7 (short rehearsals);
+``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
 phases 1, 3 and 4, saving the main path's 8 + 8
@@ -104,11 +125,14 @@ import torch
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 sys.path.insert(0, _SRC)
 
+from repro_torch.analysis import faults, invariants  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import analytical  # noqa: E402
 from repro_torch.core import convert as cconv  # noqa: E402
+from repro_torch.core import history, policies  # noqa: E402
 from repro_torch.core import pointers  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
+from repro_torch.core import serve, slicepool  # noqa: E402
 from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
 from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
@@ -192,6 +216,21 @@ def make_stream(vocab: int, n_docs: int, seed: int) -> np.ndarray:
     return synth.zipf_corpus(spec)
 
 
+def next_stream(vocab: int, n_docs: int, seed: int,
+                dict_seed: int) -> np.ndarray:
+    """A fresh stream — ``seed``'s tweet lengths and draws — over the
+    dictionary of the stream made from ``dict_seed``: the generator
+    gives each seed its own rank -> term-id permutation, so the terms
+    are relabelled to keep each term's popularity, as one day's tweets
+    follow the day before."""
+    docs = make_stream(vocab, n_docs, seed)
+    rank = np.empty(vocab, np.int64)
+    rank[np.random.default_rng(seed).permutation(vocab)] = np.arange(vocab)
+    relabel = np.random.default_rng(dict_seed).permutation(vocab)[rank]
+    return np.where(docs >= 0, relabel[np.maximum(docs, 0)],
+                    -1).astype(np.int32)
+
+
 class BruteForce:
     """Per-term (doc, position) lists straight from the stream matrix,
     built chunk by chunk on the host for the terms the queries use."""
@@ -216,20 +255,25 @@ class BruteForce:
                       for t in set(terms)}
         self._tf = {}
 
-    def docs_of(self, t: int) -> np.ndarray:
-        return self.tf_of(t)[0]
+    def docs_of(self, t: int, n=None) -> np.ndarray:
+        return self.tf_of(t, n)[0]
 
-    def tf_of(self, t: int):
-        """(ascending docs, term frequency in each) of one term."""
+    def tf_of(self, t: int, n=None):
+        """(ascending docs, term frequency in each) of one term, over the
+        whole stream or its first ``n`` docs."""
         t = int(t)
         if t not in self._tf:
             self._tf[t] = np.unique(self.lists[t][0], return_counts=True)
-        return self._tf[t]
+        ids, tf = self._tf[t]
+        if n is None:
+            return ids, tf
+        cut = np.searchsorted(ids, n)
+        return ids[:cut], tf[:cut]
 
-    def scored(self, terms):
+    def scored(self, terms, n=None):
         """Docs holding every term, ranked by sum of min(tf, 255) desc,
         then docid desc: (docs, scores)."""
-        its = [self.tf_of(t) for t in terms]
+        its = [self.tf_of(t, n) for t in terms]
         ids = its[0][0]
         for more, _ in its[1:]:
             ids = np.intersect1d(ids, more)
@@ -239,21 +283,24 @@ class BruteForce:
         order = np.lexsort((-ids, -sc))
         return ids[order], sc[order]
 
-    def conjunctive(self, terms) -> np.ndarray:
-        out = self.docs_of(terms[0])
+    def conjunctive(self, terms, n=None) -> np.ndarray:
+        out = self.docs_of(terms[0], n)
         for t in terms[1:]:
-            out = np.intersect1d(out, self.docs_of(t))
+            out = np.intersect1d(out, self.docs_of(t, n))
         return out[::-1]
 
-    def disjunctive(self, terms) -> np.ndarray:
-        out = self.docs_of(terms[0])
+    def disjunctive(self, terms, n=None) -> np.ndarray:
+        out = self.docs_of(terms[0], n)
         for t in terms[1:]:
-            out = np.union1d(out, self.docs_of(t))
+            out = np.union1d(out, self.docs_of(t, n))
         return out[::-1]
 
-    def phrase(self, t1: int, t2: int) -> np.ndarray:
+    def phrase(self, t1: int, t2: int, n=None) -> np.ndarray:
         d1, p1 = self.lists[int(t1)]
         d2, p2 = self.lists[int(t2)]
+        if n is not None:
+            c1, c2 = np.searchsorted(d1, n), np.searchsorted(d2, n)
+            d1, p1, d2, p2 = d1[:c1], p1[:c1], d2[:c2], p2[:c2]
         k1 = d1 * 256 + p1
         hit = np.isin(k1 + 1, d2 * 256 + p2)
         return np.unique(d1[hit])[::-1]
@@ -723,7 +770,10 @@ def oracle_answers(bf: BruteForce, queries, pairs):
 
 
 def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
-               extra_docs: int, q_rows: int, n_queries: int, fmax: int):
+               extra_docs: int, q_rows: int, n_queries: int, fmax: int,
+               keep: bool = False):
+    """The main path; with ``keep`` returns ``(summary, engine)`` so the
+    serving phase takes over the full-width engine."""
     max_len = 1 << int(fmax - 1).bit_length()
     max_slices = int(analytical.slices_needed(Z, fmax)) + 1
     log(f"main path: max_len {max_len}, max_slices {max_slices}, "
@@ -799,6 +849,8 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         query_peak_bytes={k: v[2] for k, v in res.items()},
         scored_blocks_skipped=skip[0], scored_blocks_live=skip[1],
         high_water_slots=hw_after, peak_bytes=peak, launches=counts)
+    if keep:
+        return summary, eng
     del eng
     torch.cuda.empty_cache()
     return summary
@@ -915,6 +967,590 @@ def phase_sequential(docs: np.ndarray, vocab: int, seg_docs: int,
     del rec
     torch.cuda.empty_cache()
     return counts
+
+# ---------------------------------------------------------------------------
+# phase 7: search serving through the ServeLoop (ladder, crash, Table 2)
+# ---------------------------------------------------------------------------
+SERVE_DOCS = 1 << 20          # tweets submitted through the serving loop
+SERVE_K = 10                  # k of the top-k and scored requests
+FULL_BUCKET = 32              # ServeConfig().max_batch: one full bucket
+# (name, forced rung or None for the gauge, arrival batches, steps at
+# which requests are submitted, requests at each such step, whether the
+# first of those steps is traced).  The light stretches submit two of
+# each kind at four or five steps, so the 2 ms timer flushes them; the
+# full ones submit a full bucket before every step, so every step
+# flushes a full bucket: the rung's capacity.  A traced step is left out
+# of the stretch's times and latencies (the profiler slows it); the
+# forced full stretches are not traced, since the profiler takes 5-30 s
+# to read one such step.
+SERVE_STRETCHES = (("exhaustive", 0, 35, (0, 9, 18, 27), 10, True),
+                   ("early_exit", 1, 35, (0, 9, 18, 27), 10, True),
+                   ("reduced_k", 2, 35, (0, 9, 18, 27), 10, True),
+                   ("frozen_only", 3, 35, (0, 9, 18, 27), 10, True),
+                   ("gauge", None, 84, (0, 21, 42, 63, 82), 10, True),
+                   ("exhaustive_full", 0, 4, range(4), FULL_BUCKET, False),
+                   ("early_exit_full", 1, 4, range(4), FULL_BUCKET, False),
+                   ("reduced_k_full", 2, 4, range(4), FULL_BUCKET, False),
+                   ("frozen_only_full", 3, 4, range(4), FULL_BUCKET, False),
+                   ("gauge_full", None, 16, range(16), FULL_BUCKET, True))
+
+
+def stream_answer(bf: BruteForce, kind: str, terms, n_docs: int):
+    """(docs, scores or None) of one request over the stream's first
+    ``n_docs`` docs: the whole stream's answer, computed once per
+    request and cut to docs below ``n_docs``.  Each kind's answer is a
+    per-doc predicate in a fixed total order (docid descending; scored:
+    score, then docid, descending), so the cut equals the answer over
+    the prefix."""
+    memo = bf.__dict__.setdefault("answers", {})
+    key = (kind, tuple(terms))
+    if key not in memo:
+        if kind == "scored":
+            memo[key] = bf.scored(terms)
+        elif kind == "phrase":
+            memo[key] = bf.phrase(terms[0], terms[1]), None
+        elif kind == "disjunctive":
+            memo[key] = bf.disjunctive(terms), None
+        else:                                # conjunctive and topk
+            memo[key] = bf.conjunctive(terms), None
+    ids, scs = memo[key]
+    m = ids < n_docs
+    return ids[m], (None if scs is None else scs[m])
+
+
+def rung_answer(bf: BruteForce, kind: str, terms, k: int, level: int,
+                n_docs: int, base: int, cfg) -> tuple:
+    """What a response served at ``level`` must equal, from the brute
+    force over the stream's first ``n_docs`` docs (those applied when the
+    request was dispatched); ``base`` is the frozen/active boundary
+    then.  The slicing is the ladder's exactness contract."""
+    kk = k if level <= serve.DEGRADE_EARLY_EXIT \
+        else max(1, k // cfg.reduced_k_factor)
+    full, scs = stream_answer(bf, kind, terms, n_docs)
+    if kind == "scored":
+        ids = full
+        if level == serve.DEGRADE_FROZEN_ONLY:
+            m = ids < base
+            ids, scs = ids[m], scs[m]
+        cut = k if level == serve.DEGRADE_NONE else kk
+        return ids[:cut], scs[:cut]
+    if level == serve.DEGRADE_FROZEN_ONLY:
+        full = full[full < base]
+    if level == serve.DEGRADE_NONE:
+        return (full[:k] if kind == "topk" else full), None
+    return full[:kk], None
+
+
+class ServeDriver:
+    """Drives a :class:`serve.ServeLoop` over an engine and an arrival
+    stream, holding every response against :func:`rung_answer` at the
+    docs applied when its step dispatched it, and timing the steps."""
+
+    def __init__(self, loop, bf: BruteForce, feed, queries, pairs):
+        self.loop, self.bf = loop, bf
+        self.feed = list(feed)               # batches not yet acked
+        self.queries, self.pairs = queries, pairs
+        self.next_r = 0                      # requests submitted
+        self.requests = {}                   # qid -> (kind, terms, k)
+        self.rejections = []
+        self.checked = 0
+
+    def applied_docs(self) -> tuple:
+        eng = self.loop.engine
+        return eng.doc_base + eng.segments.active.next_docid, eng.doc_base
+
+    def submit_ingest(self, burst: bool = False) -> None:
+        """Ack the next batch (``burst``: as many as the queue takes); a
+        rejection keeps the batch at the head of the feed for a retry."""
+        while self.feed:
+            r = self.loop.submit_ingest(self.feed[0])
+            if isinstance(r, serve.Rejected):
+                if r.retry_after_s <= 0:
+                    raise AssertionError(f"rejection without retry-after: "
+                                         f"{r}")
+                self.rejections.append(r)
+                return
+            self.feed.pop(0)
+            if not burst:
+                return
+
+    def submit_queries(self, n: int = 10) -> None:
+        """Submit ``n`` requests: the kinds in turn, the next query (or
+        pair, for a phrase) after each round of kinds."""
+        kinds = serve.QUERY_KINDS
+        for _ in range(n):
+            j, self.next_r = self.next_r // len(kinds), self.next_r + 1
+            kind = kinds[(self.next_r - 1) % len(kinds)]
+            terms = (self.pairs[j % len(self.pairs)] if kind == "phrase"
+                     else self.queries[j % len(self.queries)])
+            qid = self.loop.submit_query(kind, terms, k=SERVE_K)
+            if isinstance(qid, serve.Rejected):
+                self.rejections.append(qid)
+            else:
+                self.requests[qid] = (kind, tuple(terms), SERVE_K)
+
+    def step(self, force: bool = False, traced: bool = False):
+        """One loop step; returns (its responses, ms, profile or None)."""
+        n_docs, base = self.applied_docs()
+        prof = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced:
+            prof = device_profile(lambda: self.loop.step(force=force))
+        else:
+            self.loop.step(force=force)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out = self.loop.take_responses()
+        cfg = self.loop.config
+        for r in out:
+            kind, terms, k = self.requests.pop(r.qid)
+            ids, scs = rung_answer(self.bf, kind, terms, k, r.level,
+                                   n_docs, base, cfg)
+            if not np.array_equal(r.docids, ids) or (
+                    scs is not None and not np.array_equal(r.scores, scs)):
+                raise AssertionError(
+                    f"{kind} {terms} at rung {r.level_name}: "
+                    f"{len(r.docids)} docids, oracle {len(ids)}")
+            if (scs is None) != (r.scores is None):
+                raise AssertionError(f"{kind}: scores presence differs")
+            self.checked += 1
+        return out, ms, prof
+
+    def drain(self) -> list:
+        out = []
+        while self.loop.pending_queries or self.loop.pending_ingest \
+                or self.feed:
+            if self.feed and not self.loop.pending_ingest:
+                self.submit_ingest()
+            out += self.step(force=True)[0]
+        return out
+
+
+def serve_stretch(drv: ServeDriver, name: str, level, n_batches: int,
+                  query_at, n_requests: int, trace: bool,
+                  burst: bool = False) -> dict:
+    """One stretch of the stream under one rung (``level``) or the
+    gauge (None): one arrival batch a step, ``n_requests`` requests of
+    the kinds in turn at the ``query_at`` steps, the first of them
+    traced if ``trace`` (and then left out of the times and latencies).
+    A stretch that submits a full bucket before every step must flush a
+    full bucket at every step."""
+    loop = drv.loop
+    loop.force_level = level
+    s0 = dataclasses.replace(loop.stats,
+                             served_by_level=list(loop.stats.served_by_level))
+    rej0 = len(drv.rejections)
+    steps, qsteps, lat, levels, prof = [], [], [], [], None
+    for i in range(n_batches):
+        if burst and i == 0:
+            drv.submit_ingest(burst=True)
+        elif not loop.pending_ingest:
+            drv.submit_ingest()
+        if i in query_at:
+            drv.submit_queries(n_requests)
+        traced = trace and i == query_at[0]
+        out, ms, p = drv.step(force=traced, traced=traced)
+        if traced:
+            prof = p
+            continue
+        (qsteps if out else steps).append(ms)
+        lat += [r.latency_s * 1e3 for r in out]
+        levels += [r.level for r in out]
+    s1 = loop.stats
+    served = s1.queries_served - s0.queries_served
+    full = s1.flushes_full - s0.flushes_full
+    if n_requests >= loop.config.max_batch and len(query_at) == n_batches \
+            and full != n_batches:
+        raise AssertionError(f"serve {name}: {full} full buckets in "
+                             f"{n_batches} steps")
+    row = dict(
+        stretch=name, served=served, requests_per_step=n_requests,
+        flushes_full=full,
+        flushes_timer=s1.flushes_timer - s0.flushes_timer,
+        dispatches=s1.batches_dispatched - s0.batches_dispatched,
+        served_per_s=len(lat) / (sum(steps + qsteps) / 1e3),
+        served_by_level=[a - b for a, b in zip(s1.served_by_level,
+                                               s0.served_by_level)],
+        deadline_misses=s1.deadline_misses - s0.deadline_misses,
+        rejections=len(drv.rejections) - rej0,
+        ingest_applied=s1.ingest_applied - s0.ingest_applied,
+        ms_per_step=float(np.mean(steps + qsteps)),
+        ms_per_ingest_step=float(np.median(steps)) if steps else None,
+        ms_per_query_step=float(np.median(qsteps)),
+        query_steps=len(qsteps),
+        latency_p50_ms=float(np.percentile(lat, 50)) if lat else None,
+        latency_p99_ms=float(np.percentile(lat, 99)) if lat else None,
+        traced_wall_ms=prof and prof["wall_ms"],
+        traced_busy_ms=prof and prof["busy_ms"],
+        traced_idle=prof and prof["idle"])
+    traced = ("no step traced" if prof is None else
+              f"traced step {prof['wall_ms']:.1f} ms wall, "
+              f"{prof['busy_ms']:.1f} ms device "
+              f"({100 * prof['idle']:.0f}% idle); top: " + top_ops(prof))
+    log(f"serve {name}: {served} served (by rung {row['served_by_level']}; "
+        f"{n_requests} requests at each of {len(query_at)} steps, "
+        f"{full} full buckets, {row['flushes_timer']} timer flushes, "
+        f"{row['dispatches']} dispatches; {row['served_per_s']:.2f} "
+        f"served per s of untraced step time), "
+        f"{row['deadline_misses']} deadline misses, {row['rejections']} "
+        f"rejections, {row['ingest_applied']} batches applied; "
+        f"{row['ms_per_step']:.1f} ms per step (ingest-only median "
+        + (f"{row['ms_per_ingest_step']:.1f}" if steps else "none")
+        + f", the {len(qsteps)} untraced that dispatched requests "
+        f"{row['ms_per_query_step']:.1f}); request latency p50 "
+        f"{row['latency_p50_ms'] or 0:.1f} ms, p99 "
+        f"{row['latency_p99_ms'] or 0:.1f} ms (untraced steps); " + traced)
+    return row
+
+
+def checked_routes() -> int:
+    """The sanitized routes (``checked=True``) on the card: each of the
+    five launches its kernel once, counted, and equals the unchecked
+    call; an out-of-range input raises ``SanitizerError`` before any
+    launch.  Returns the number of checked calls."""
+    from repro_torch.analysis import sanitize
+    rng = np.random.default_rng(21)
+    ids = [np.unique(rng.integers(0, 1 << 20, n)).astype(np.uint32)
+           for n in (4000, 900)]
+    A, B = (pack_docids(x).to("cuda") for x in ids)
+    SA = stack_packed([pack_docids(x) for x in ids]).to("cuda")
+    SB = stack_packed([pack_docids(x) for x in ids[::-1]]).to("cuda")
+    sc = [si.pack_scored(x, rng.integers(1, 256, x.size)) for x in ids]
+    SCA, SCB = stack_scored(sc).to("cuda"), stack_scored(sc[::-1]).to("cuda")
+    rest = torch.full((2,), 255, dtype=torch.int32, device="cuda")
+    th = torch.full((2,), -1, dtype=torch.int32, device="cuda")
+    la = torch.full((2, 4096), 0xFFFFFFFF, dtype=torch.int64, device="cuda")
+    lb = la.clone()
+    for r, x in enumerate(ids):
+        la[r, :x.size] = torch.as_tensor(x.astype(np.int64))
+        lb[1 - r, :x.size] = torch.as_tensor(x.astype(np.int64))
+    H, V = 1 << 16, 4096                  # one lane per term, as a plan
+    perm = torch.as_tensor(rng.permutation(H), device="cuda")
+
+    def i64(x):
+        return torch.as_tensor(x, dtype=torch.int64, device="cuda")
+
+    dense = (torch.zeros(H, dtype=torch.int64, device="cuda"),
+             i64(np.full(V, 0xFFFFFFFF)),
+             torch.zeros(V, dtype=torch.int32, device="cuda"),
+             perm[:V].clone(), i64(rng.integers(1, 1 << 20, V)),
+             perm[V: 2 * V].clone(), i64(rng.integers(0, H, V)),
+             i64(rng.permutation(V)), i64(rng.integers(0, H, V)),
+             torch.ones(V, dtype=torch.int32, device="cuda"))
+    far = lambda p: p._replace(woffs=p.woffs + 10_000)  # noqa: E731
+    cases = (("intersect_mask", (la, lb), (la, lb[:1])),
+             ("segment_intersect_mask", (A, B), (far(A), B)),
+             ("segment_intersect_mask_batched", (SA, SB), (far(SA), SB)),
+             ("scored_intersect_batched", (SCA, SCB, rest, th),
+              (SCA._replace(ids=far(SCA.ids)), SCB, rest, th)),
+             ("bulk_append", dense,
+              dense[:5] + (dense[5] + H,) + dense[6:]))
+    for name, good, bad in cases:
+        fn = getattr(ops, name)
+        # bulk_append writes its first three arguments in place
+        fresh = [t.clone() if name == "bulk_append" and i < 3 else t
+                 for i, t in enumerate(good)]
+        want = fn(*fresh)
+        ops.reset_launch_counts()
+        got = fn(*[t.clone() if name == "bulk_append" and i < 3 else t
+                   for i, t in enumerate(good)], checked=True)
+        if ops.launch_counts()[name] != 1:
+            raise AssertionError(f"checked {name} launched "
+                                 f"{ops.launch_counts()[name]} kernels")
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"checked {name} differs from the "
+                                     f"unchecked call")
+        try:
+            fn(*bad, checked=True)
+        except sanitize.SanitizerError:
+            pass
+        else:
+            raise AssertionError(f"checked {name} let a bad input through")
+        if ops.launch_counts()[name] != 1:
+            raise AssertionError(f"checked {name} launched on a bad input")
+    return len(cases)
+
+
+def phase_serve(eng, docs: np.ndarray, vocab: int, seed: int,
+                tmp: str) -> dict:
+    """7(a): phase 3's full-width engine behind the reference's
+    ``ServeConfig`` with a journal; 2**20 more tweets in 4096-tweet
+    batches interleaved with requests of every kind, each rung forced in
+    turn, then a stretch under the gauge (with a burst that meets the
+    ingest queue's backpressure), first at a light request rate, then
+    with a full 32-request bucket before every step
+    (``SERVE_STRETCHES``).  Every response is held against the
+    brute force over the docs applied before its dispatch; every acked
+    batch is read back from the journal; ``check_serve`` and
+    ``check_engine`` run on the final state."""
+    n0 = docs.shape[0]
+    if eng.doc_base + eng.segments.active.next_docid != n0:
+        raise AssertionError("the engine has not ingested the stream")
+    t0 = time.perf_counter()
+    more = make_stream(vocab, SERVE_DOCS, seed=seed)
+    stream = np.concatenate([docs, more])
+    queries, pairs = query_batch(docs, vocab, 24, seed=seed + 1)
+    bf = BruteForce(stream, {t for q in queries for t in q}, vocab)
+    log(f"serve: {SERVE_DOCS} more tweets and the oracle over "
+        f"{stream.shape[0]} in {time.perf_counter() - t0:.1f} s")
+    cfg = serve.ServeConfig()
+    wal = os.path.join(tmp, "serve.jrnl")
+    journal = recovery.IngestJournal(wal)
+    loop = serve.ServeLoop(eng, cfg, journal=journal)
+    batches = [more[s: s + BATCH] for s in range(0, SERVE_DOCS, BATCH)]
+    drv = ServeDriver(loop, bf, batches, queries, pairs)
+    ops.reset_launch_counts()
+    rows = []
+    t0 = time.perf_counter()
+    for name, level, n_b, q_at, n_rq, trace in SERVE_STRETCHES:
+        rows.append(serve_stretch(drv, name, level, n_b, q_at, n_rq, trace,
+                                  burst=name == "gauge"))
+    drv.drain()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k in ("bulk_append", "segment_intersect_mask_batched",
+              "scored_intersect_batched"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the serving path never launched {k}")
+    if not next(r for r in rows if r["stretch"] == "gauge")["rejections"]:
+        raise AssertionError("the burst met no ingest backpressure")
+    journal.close()
+    _, records = recovery.read_journal(wal)
+    if len(records) != len(batches) or not all(
+            np.array_equal(d, b) for (_, d), b in zip(records, batches)):
+        raise AssertionError("the journal does not hold every acked batch")
+    if (eng.doc_base + eng.segments.active.next_docid != stream.shape[0]
+            or loop.stats.ingest_applied != len(batches)):
+        raise AssertionError("an acked batch was not applied")
+    os.remove(wal)
+    t0 = time.perf_counter()
+    rep_serve = invariants.check_serve(loop)
+    t_cs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_eng = invariants.check_engine(eng)
+    torch.cuda.synchronize()
+    t_ce = time.perf_counter() - t0
+    rep_serve.raise_if_failed()
+    rep_eng.raise_if_failed()
+    st = loop.stats
+    log(f"serve: {drv.checked} responses held against the brute force at "
+        f"their rungs; {st.queries_served} served, {st.deadline_misses} "
+        f"deadline misses, {st.queries_rejected} query and "
+        f"{st.ingest_rejected} ingest rejections (each with retry-after), "
+        f"{st.ingest_applied} acked batches applied and read back from "
+        f"the journal, {st.batches_dispatched} dispatches "
+        f"({st.flushes_full} full, {st.flushes_timer} by the timer) in "
+        f"{t_serve:.1f} s; serving-path launches {json.dumps(counts)}")
+    log(f"serve: check_serve ok={rep_serve.ok} in {t_cs:.4f} s "
+        f"{rep_serve.stats}; check_engine on the full-width state ok="
+        f"{rep_eng.ok} in {t_ce:.2f} s {rep_eng.stats}")
+    return dict(stretches=rows, responses_checked=drv.checked,
+                serve_s=t_serve, launches=counts,
+                check_serve_s=t_cs, check_engine_s=t_ce,
+                check_engine_stats=rep_eng.stats,
+                stats=dataclasses.asdict(st))
+
+
+def phase_serve_crash(tmp: str) -> dict:
+    """7(b): at phase 4's depth (2**16-tweet segments) a journaled,
+    ``validate=True`` engine behind the loop dies inside a rollover
+    (``faults.crash_site("crash_mid_rollover")``) with requests in
+    flight; ``recover`` on the card and ``resume_with``; the stream goes
+    on.  Every acked batch is read back, the fingerprint equals an
+    uncrashed engine's, every response equals the brute force; then
+    every ``FaultPlan`` kind at the harness's sizes on the card."""
+    small = 1 << 16
+    vocab = 1 << 16
+    sdocs = make_stream(vocab, 4 * small + small // 2, seed=13)
+    layout, _, fmax = size_layout(sdocs, vocab, small)
+
+    def engine():
+        return LifecycleEngine(
+            layout, vocab, small,
+            max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+            max_len=1 << int(fmax - 1).bit_length(),
+            compaction=CompactionPolicy(fanout=2), validate=True,
+            device="cuda")
+
+    queries, pairs = query_batch(sdocs, vocab, 12, seed=14)
+    bf = BruteForce(sdocs, {t for q in queries for t in q}, vocab)
+    batches = [sdocs[s: s + BATCH] for s in range(0, sdocs.shape[0], BATCH)]
+    wal, snap = os.path.join(tmp, "crash.jrnl"), os.path.join(tmp,
+                                                              "crash.snap")
+    journal = recovery.IngestJournal(wal)
+    loop = serve.ServeLoop(engine(), serve.ServeConfig(), journal=journal)
+    loop.force_level = serve.DEGRADE_NONE
+    drv = ServeDriver(loop, bf, batches, queries, pairs)
+    loop.snapshot_now(snap)
+    per_seg = small // BATCH
+    arm = 5 * per_seg // 2                  # mid third segment
+    crashed_at = None
+    for i in range(len(batches)):
+        drv.submit_ingest()
+        fills = (i + 1) % per_seg == 0      # this step's batch rolls over
+        if i % (per_seg // 2) == 0 or fills:
+            drv.submit_queries(n=5)
+        if i == per_seg + per_seg // 4:
+            drv.step()
+            loop.snapshot_now(snap)         # a mid-stream snapshot
+            continue
+        if i < arm:
+            drv.step(force=fills)
+            continue
+        try:
+            with faults.crash_site("crash_mid_rollover"):
+                drv.step(force=fills)       # requests in flight
+        except faults.InjectedCrash:
+            crashed_at = i
+            break
+    acked, in_flight = journal.next_seq, loop.in_flight_queries
+    if crashed_at is None or not in_flight:
+        raise AssertionError("the injected crash never fired with "
+                             "requests in flight")
+    journal.close()
+    torn = loop.engine
+    loop.engine = None
+    del torn
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = recovery.recover(snap, wal, expect_seq=acked, device="cuda")
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    loop.resume_with(rec, journal=recovery.IngestJournal(wal))
+    drv.drain()
+    loop.journal.close()
+    _, records = recovery.read_journal(wal)
+    if len(records) != len(batches) or not all(
+            np.array_equal(d, b) for (_, d), b in zip(records, batches)):
+        raise AssertionError("an acked batch is missing from the journal")
+    oracle = engine()
+    for b in batches:
+        oracle.ingest(b)
+    fa = recovery.engine_fingerprint(loop.engine)
+    fb = recovery.engine_fingerprint(oracle)
+    fa.pop("stats"), fb.pop("stats")     # scored requests bump the stats
+    if fa != fb:
+        raise AssertionError("the recovered, resumed engine differs from "
+                             "the uncrashed one")
+    invariants.check_serve(loop).raise_if_failed()
+    st = loop.stats
+    log(f"serve crash: died inside the rollover at batch {crashed_at} of "
+        f"{len(batches)} with {in_flight} requests in flight; recovered "
+        f"on the card in {t_rec:.2f} s ({acked} acked batches, "
+        f"{st.ingest_recovered} of them queued at the crash), resumed: "
+        f"fingerprint equal to the uncrashed engine's, every acked batch "
+        f"read back, {drv.checked} responses equal to the brute force, "
+        f"{st.queries_aborted} aborted in flight; check_serve ok")
+    del loop, rec, oracle
+    torch.cuda.empty_cache()
+    kinds = {}
+    for kind in faults.KINDS:
+        res = faults.run_plan(faults.FaultPlan(kind=kind, seed=3), tmp,
+                              device="cuda")
+        kinds[kind] = ("raised" if res.raised is not None else
+                       f"recovered (crashed={res.crashed})")
+    faults.run_plan(faults.FaultPlan(kind="crash_mid_rollover", seed=0,
+                                     validate=True), tmp, device="cuda")
+    log(f"fault plans on the card: {json.dumps(kinds)}; and a validate=True "
+        f"crash_mid_rollover plan")
+    return dict(crashed_at=crashed_at, acked=acked, recover_s=t_rec,
+                responses_checked=drv.checked, fault_plans=kinds)
+
+
+def sp_pool_need(freqs: np.ndarray, start: np.ndarray) -> np.ndarray:
+    """Slices each pool gives a segment whose term ``t`` occurs
+    ``freqs[t]`` times and starts in pool ``start[t]``: the chain's slice
+    i lives in pool min(start + i, P - 1); a chain starting past pool 0
+    loses one slot of its first slice to the NULL pointer
+    (``analytical.memory_slots_sp``'s model)."""
+    P = len(Z)
+    need = np.zeros(P, np.int64)
+    live = freqs > 0
+    f, s = freqs[live].astype(np.int64), start[live].astype(np.int64)
+    for sp in np.unique(s):
+        fm = f[s == sp]
+        if sp == 0:
+            n_sl = analytical.slices_needed(Z, fm)
+        else:
+            zs = Z[int(sp):]
+            last = (1 << zs[-1]) - 1
+            th = analytical.thetas(zs, len(zs) + int(fm.max()) // last + 2)
+            n_sl = np.searchsorted(th - 1, np.maximum(fm, 1)) + 1
+        for p in range(int(sp), P):
+            i = p - int(sp)
+            need[p] += int((np.clip(n_sl - i, 0, None) if p == P - 1
+                            else n_sl > i).sum())
+    return need
+
+
+def phase_table2(hist: np.ndarray, vocab: int, seg_docs: int,
+                 seed: int) -> dict:
+    """7(c): the paper's Table 2 at full width.  The history H is phase
+    3's frozen segment's term frequencies; a fresh 2**23-tweet stream
+    from a new seed (over phase 3's dictionary, :func:`next_stream`) is
+    indexed into one segment under each SP policy,
+    its pools sized from the policy's own start table.  Per policy: the
+    live and high-water slots, the waste against SP(z0), the overflow
+    flag (must be 0), and the slots (and each pool's slices) against
+    ``analytical.memory_slots_sp`` over the stream's frequencies."""
+    t0 = time.perf_counter()
+    docs = next_stream(vocab, seg_docs, seed=seed, dict_seed=0)
+    freqs = synth.term_freqs(docs, vocab)
+    ch = history.churn(hist, freqs, top_k=10000)
+    log(f"table 2: a fresh {seg_docs}-tweet stream (seed {seed}) in "
+        f"{time.perf_counter() - t0:.1f} s; churn of the top 10,000 terms "
+        f"against the history {ch:.4f}")
+    cap = pointers.production_layout().max_slices
+    live = freqs > 0
+    rows = {}
+    for policy in sorted(policies.POLICIES):
+        table = policies.start_pools_for_vocab(policy, Z, hist,
+                                               device="cuda")
+        start = table.cpu().numpy()
+        need = sp_pool_need(freqs, start)
+        spp = tuple(min(1 << int(np.ceil(np.log2(max(n * 1.25, 2)))),
+                        cap(p)) for p, n in enumerate(need))
+        layout = pointers.production_layout(spp)
+        seg = ActiveSegment(layout, vocab, max_docs=seg_docs, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, seg_docs, BATCH):
+            seg.ingest(docs[s: s + BATCH], term_start_pools=table)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        used = seg.memory_slots_used()
+        hw = slicepool.memory_high_water_slots(layout, seg.state)
+        overflow = int(bool(seg.state.overflow))
+        model = int(analytical.memory_slots_sp(Z, freqs[live],
+                                               start[live]).sum())
+        wm = seg.state.watermark.cpu().numpy().astype(np.int64)
+        if overflow or used != model or not np.array_equal(wm, need):
+            raise AssertionError(
+                f"{policy}: overflow {overflow}, slots {used} vs model "
+                f"{model}, slices per pool {wm.tolist()} vs "
+                f"{need.tolist()}")
+        rows[policy] = dict(slots=used, high_water=hw, overflow=overflow,
+                            model_slots=model, slices=wm.tolist(),
+                            pools=list(spp), docs_per_s=seg_docs / dt)
+        del seg
+        torch.cuda.empty_cache()
+    base = rows["sp_default"]["slots"]
+    for policy, r in rows.items():
+        r["waste_vs_default"] = (r["slots"] - base) / base
+        log(f"table 2 {policy}: {r['slots']} slots live, high-water "
+            f"{r['high_water']}, waste against SP(z0) "
+            f"{100 * r['waste_vs_default']:+.2f}%, overflow "
+            f"{r['overflow']}, = the model's {r['model_slots']}; slices "
+            f"per pool {r['slices']} of {r['pools']}; "
+            f"{r['docs_per_s']:.0f} docs/s")
+    return dict(churn_top10k=ch, policies=rows)
+
+
 
 # ---------------------------------------------------------------------------
 # phase 5: paged-KV decoder serving at TinyLlama-1.1B full width
@@ -1290,15 +1926,45 @@ def save_segment_calls(path: str, segment_log2: int) -> None:
         f"calls to {path} ({size / 2**20:.1f} MiB)")
 
 
-def phase_index(segment_log2: int):
-    """Phases 2-4 (the streaming index); returns their kernel rows."""
+def phase_index(segment_log2: int, serve_only: bool = False):
+    """Phases 2-4 and 7 (the streaming index and search serving) around
+    one full-width stream: phase 3's engine goes on to serve (7a), its
+    history drives Table 2 (7c), phase 4 and the crash under serve (7b)
+    run at 2**16-tweet segments.  Returns the kernel rows (none with
+    ``serve_only``, which leaves out phases 2 and 4)."""
     docs, layout, vocab, seg_docs, extra, fmax = index_stream(segment_log2)
     q_rows = 8
-    kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows, seed=5)
-    main_sum = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
-                          n_queries=64, fmax=fmax)
-    del docs
-    seq_counts = phase_small()
+    if not serve_only:
+        kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows,
+                                seed=5)
+    main_sum, eng = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
+                               n_queries=64, fmax=fmax, keep=True)
+    t0 = time.perf_counter()
+    n = checked_routes()
+    log(f"checked routes on the card: {n} kernels, each launched once "
+        f"by its checked call and equal to the unchecked one; an "
+        f"out-of-range input raised SanitizerError before any launch")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_sum = phase_serve(eng, docs, vocab, seed=11, tmp=tmp)
+    hist = eng.segments.history_freqs()
+    del eng, docs
+    torch.cuda.empty_cache()
+    log(f"phase 7a (serving at full width) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    table2 = phase_table2(hist, vocab, seg_docs, seed=12)
+    log(f"phase 7c (Table 2) {time.perf_counter() - t0:.1f} s")
+    if not serve_only:
+        seq_counts = phase_small()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        crash = phase_serve_crash(tmp)
+    log(f"phase 7b (crash under serve) {time.perf_counter() - t0:.1f} s")
+    log("search serving: " + json.dumps(dict(
+        serve=serve_sum, table2=table2, crash=crash)))
+    log("main path: " + json.dumps({
+        k: v for k, v in main_sum.items() if k != "launches"}))
+    if serve_only:
+        return []
 
     table = []
     for name in ("bulk_append", "segment_intersect_mask_batched",
@@ -1316,8 +1982,6 @@ def phase_index(segment_log2: int):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"]))
-    log("main path: " + json.dumps({
-        k: v for k, v in main_sum.items() if k != "launches"}))
     return table
 
 
@@ -1742,6 +2406,9 @@ def main(argv=None) -> int:
                     help="run only the build and the paged-serving phase")
     ap.add_argument("--recsys-only", action="store_true",
                     help="run only the build and the recsys-serving phase")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run only the build, the main path (phase 3) and "
+                         "search serving (phase 7)")
     ap.add_argument("--intersect-calls", default="", metavar="PATH",
                     help="run only the build and phase 4, and save the "
                          "sequential route's intersect_mask inputs to PATH "
@@ -1774,8 +2441,8 @@ def main(argv=None) -> int:
     elif args.bag_calls:
         save_bag_calls(args.bag_calls, seed=0)
     elif not (args.paged_only or args.recsys_only):
-        table = phase_index(args.segment_log2)
-    if not (args.recsys_only or saving):
+        table = phase_index(args.segment_log2, serve_only=args.serve_only)
+    if not (args.recsys_only or args.serve_only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
         table.append(dict(
@@ -1788,7 +2455,7 @@ def main(argv=None) -> int:
             bound_by="bytes", library_ms=row["library_ms"]))
         log("paged serving: " + json.dumps(paged_sum))
         log(f"paged phase {time.perf_counter() - t0:.1f} s")
-    if not (args.paged_only or saving):
+    if not (args.paged_only or args.serve_only or saving):
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")

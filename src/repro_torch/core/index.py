@@ -61,6 +61,10 @@ class ActiveSegment:
         """
         dev = self.state.heap.device
         docs = torch.as_tensor(docs, device=dev)
+        if not docs.is_signed():
+            # uint32 term ids (the reference's journals) hold the same
+            # values as int64, which torch compares and gathers
+            docs = docs.long()
         batch = docs.shape[0]
         terms, plist, valid = flatten(docs, self.next_docid)
         if term_start_pools is not None:

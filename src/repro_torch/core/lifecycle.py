@@ -254,7 +254,9 @@ class LifecycleEngine:
     "cpu", where each kernel's plain version runs).  The batched frozen
     conjunction and the exhaustive scored conjunction run their CUDA
     kernels exactly when the engine is on a CUDA device and
-    ``use_kernel``.
+    ``use_kernel``.  ``validate=True`` runs the structural validators
+    (:meth:`validate_invariants`) after every rollover and every
+    engine-driven compaction.
     """
 
     def __init__(self, layout: PoolLayout, vocab_size: int,
@@ -267,10 +269,6 @@ class LifecycleEngine:
                  compaction: Optional[seg_mod.CompactionPolicy] = None,
                  admission: Optional[AdmissionController] = None,
                  device="cuda"):
-        if validate:
-            raise NotImplementedError(
-                "validate=True needs the invariant validators, a later "
-                "slice of the port (ROADMAP.md, Queue 1 item 10)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -310,6 +308,8 @@ class LifecycleEngine:
         self.stats.docs_ingested += int(docs.shape[0])
         if self.stats.rollovers != prev:
             self._refresh_memory_stats()
+            if self.validate:
+                self.validate_invariants()
         return True
 
     def _admit(self) -> bool:
@@ -326,6 +326,8 @@ class LifecycleEngine:
             self.stats.emergency_rollovers += 1
             self.stats.deferred_batches += 1
             self._refresh_memory_stats()
+            if self.validate:
+                self.validate_invariants()
             util = slicepool.pool_utilization(self.layout,
                                               self.segments.active.state)
         return util < adm.shed_at
@@ -337,15 +339,25 @@ class LifecycleEngine:
         self.stats.live_slots = slicepool.memory_slots_used(self.layout, st)
 
     def validate_invariants(self) -> None:
-        raise NotImplementedError(
-            "the invariant validators are a later slice of the port "
-            "(ROADMAP.md, Queue 1 item 10)")
+        """Run the structural validators over the allocator state and
+        every frozen segment (:func:`~repro_torch.analysis.invariants.
+        check_engine`; the chain walk on the engine's device) and raise
+        :class:`~repro_torch.analysis.invariants.InvariantViolation` on
+        a broken invariant.  Called at every rollover (scheduled or
+        emergency), at engine-driven compaction and after
+        ``recovery.restore`` when the engine was built with
+        ``validate=True`` — a debugging aid, kept off the production
+        ingest path."""
+        from repro_torch.analysis import invariants
+        invariants.check_engine(self).raise_if_failed()
 
     def compact(self, k: int):
         """Merge the ``k`` oldest frozen segments and resync the packed
         views; returns the merged segment or None (no-op)."""
         merged = self.segments.compact(k)
         self._sync_frozen()
+        if merged is not None and self.validate:
+            self.validate_invariants()
         return merged
 
     def _sync_frozen(self) -> None:

@@ -32,8 +32,11 @@ package — are bit-identical exactly when their fingerprints are equal.
 
 Manifest keys that only the reference uses (``interpret``,
 ``batched_kernel``, ``stable_shapes``) are written with neutral values
-and ignored on read: none of them changes state or answers.  Sharded
-archives and ``validate=True`` wait for later slices of the port.
+and ignored on read: none of them changes state or answers.  An engine
+restored with ``validate=True`` (from the archive's config or an
+override) runs the structural validators on the restored state before
+it is returned.  Sharded archives wait for the document-sharding slice
+of the port.
 """
 from __future__ import annotations
 
@@ -290,6 +293,10 @@ def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
     for k, v in meta["stats"].items():
         if hasattr(eng.stats, k):
             setattr(eng.stats, k, v)
+    # a checksummed but structurally broken archive fails here, not at
+    # the first wrong query result
+    if eng.validate:
+        eng.validate_invariants()
     return eng
 
 
@@ -297,7 +304,8 @@ def restore(path: str, *, device="cuda", **overrides):
     """Rebuild a port :class:`~repro_torch.core.lifecycle.LifecycleEngine`
     on ``device`` from a snapshot archive written by either package.
     ``overrides`` are constructor keyword overrides (e.g.
-    ``use_kernel=False``)."""
+    ``use_kernel=False``, ``validate=True``); with ``validate`` the
+    structural validators run on the restored state."""
     meta, arrays = read_archive(path)
     return _build_engine(meta, arrays, device=device, **overrides)
 

@@ -6,11 +6,19 @@ kernel, and any other device raises.  There is no fallback from the
 kernel to the plain version: a CUDA call whose kernel cannot build or
 launch raises.  Every kernel wrapper counts its launches in a plain
 integer attribute ``launches`` (:func:`launch_counts`).
+
+``checked=True`` on the postings, segment and bulk-append wrappers asks
+for the sanitized route (:mod:`repro_torch.analysis.sanitize`): the
+inputs' index bounds are asserted first, then the call is routed by
+device as above (a CUDA tensor launches, and counts, the kernel), then
+its output is checked for NaN.  A failed check raises
+``SanitizerError``; a call that fails the bounds launches nothing.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.analysis import sanitize
 from repro_torch.kernels import bulk_append as _ba
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import paged_attention as _pa
@@ -37,49 +45,65 @@ def _on_cuda(name: str, t) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def intersect_mask(a, b):
+def intersect_mask(a, b, *, checked: bool = False):
     """Membership mask of ascending INVALID-padded ``a`` in ``b``."""
+    if checked:
+        return sanitize.checked_call(intersect_mask, a, b,
+                                     precheck=sanitize.list_pair_bounds)
     if _on_cuda("intersect_mask", a):
         return _pi.intersect_mask(a.contiguous(), b.contiguous())
     return ref.intersect_mask_ref(a, b)
 
 
-def segment_intersect_mask(a, b):
+def segment_intersect_mask(a, b, *, checked: bool = False):
     """Fused gap-decode + intersection of two torch-leaved PackedLists."""
+    if checked:
+        return sanitize.checked_call(segment_intersect_mask, a, b,
+                                     precheck=sanitize.packed_pair_bounds)
     if _on_cuda("segment_intersect_mask", a.firsts):
         return _si.segment_intersect_mask(a, b)
     return ref.segment_intersect_mask_ref(a, b)
 
 
-def segment_intersect_mask_batched(a, b):
+def segment_intersect_mask_batched(a, b, *, checked: bool = False):
     """Row-wise masks of a whole (query, segment) batch of StackedLists."""
+    if checked:
+        return sanitize.checked_call(
+            segment_intersect_mask_batched, a, b,
+            precheck=sanitize.stacked_pair_bounds)
     if _on_cuda("segment_intersect_mask_batched", a.firsts):
         return _si.segment_intersect_mask_batched(a, b)
     return ref.segment_intersect_mask_batched_ref(a, b)
 
 
-def scored_intersect_batched(a, b, rest, th):
+def scored_intersect_batched(a, b, rest, th, *, checked: bool = False):
     """Row-wise scored conjunction over a (query, segment) batch of
     ScoredStacks: impact sums for a-docids present in b, with whole
     a-blocks zeroed when their block-max WAND bound ``a.bmax + rest``
     cannot beat the heap threshold ``th`` (int32[N] each; th = -1
     disables skipping)."""
+    if checked:
+        return sanitize.checked_call(
+            scored_intersect_batched, a, b, rest, th,
+            precheck=sanitize.scored_pair_bounds)
     if _on_cuda("scored_intersect_batched", a.ids.firsts):
         return _si.scored_intersect_batched(a, b, rest, th)
     return ref.scored_intersect_batched_ref(a, b, rest, th)
 
 
 def bulk_append(heap, tail, freq, post_addr, post_val, ptr_addr, ptr_val,
-                term_idx, term_tail, term_freq):
+                term_idx, term_tail, term_freq, *, checked: bool = False):
     """Fused scatter-append of one ingest batch into (heap, tail, freq),
-    in place."""
+    in place.  ``checked=True`` is stricter than the skip contract:
+    every lane must land (``sanitize.bulk_append_bounds``)."""
+    args = (heap, tail, freq, post_addr, post_val, ptr_addr, ptr_val,
+            term_idx, term_tail, term_freq)
+    if checked:
+        return sanitize.checked_call(bulk_append, *args,
+                                     precheck=sanitize.bulk_append_bounds)
     if _on_cuda("bulk_append", heap):
-        return _ba.bulk_append(heap, tail, freq, post_addr, post_val,
-                               ptr_addr, ptr_val, term_idx, term_tail,
-                               term_freq)
-    return ref.bulk_append_ref(heap, tail, freq, post_addr, post_val,
-                               ptr_addr, ptr_val, term_idx, term_tail,
-                               term_freq)
+        return _ba.bulk_append(*args)
+    return ref.bulk_append_ref(*args)
 
 
 def paged_attention(q, k_heap, v_heap, page_table, lengths):

@@ -64,7 +64,9 @@ def test_guard_sees_every_port_module():
                  "serve.py", "transformer.py", "layers.py", "registry.py",
                  "embedding_bag.py", "recsys.py", "steps.py",
                  "time_embedding_bag.py", "time_segment_intersect.py",
-                 "other_archs.py", "base.py"):
+                 "other_archs.py", "base.py", "invariants.py",
+                 "sanitize.py", "faults.py", "policies.py", "history.py",
+                 "tokenizer.py"):
         assert must in names
 
 
@@ -201,6 +203,33 @@ def test_kernels_match_plain_versions_on_the_card():
     ref.bulk_append_ref(*r, *scat)
     for g, w in zip(k, r):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_checked_routes_launch_the_kernels_on_the_card():
+    """``checked=True`` on CUDA tensors launches (and counts) the kernel
+    and equals the unchecked call; a seeded out-of-range window raises
+    ``SanitizerError`` before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.analysis import sanitize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_intersect import (pack_docids,
+                                                       stack_packed)
+    rng = np.random.default_rng(3)
+    ids = [np.unique(rng.integers(0, 1 << 20, n)).astype(np.uint32)
+           for n in (900, 300)]
+    a = stack_packed([pack_docids(x) for x in ids]).to("cuda")
+    b = stack_packed([pack_docids(x) for x in ids[::-1]]).to("cuda")
+    want = ops.segment_intersect_mask_batched(a, b)
+    ops.reset_launch_counts()
+    got = ops.segment_intersect_mask_batched(a, b, checked=True)
+    assert ops.launch_counts()["segment_intersect_mask_batched"] == 1
+    assert torch.equal(got, want)
+    with pytest.raises(sanitize.SanitizerError, match="woffs"):
+        ops.segment_intersect_mask_batched(
+            a._replace(woffs=a.woffs + 10_000), b, checked=True)
+    assert ops.launch_counts()["segment_intersect_mask_batched"] == 1
 
 
 @pytest.mark.cuda

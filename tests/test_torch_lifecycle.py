@@ -143,10 +143,11 @@ def test_single_query_api_and_dispatch_match(stream, streamed):
             np.testing.assert_array_equal(g, w)
 
 
-def test_scored_and_sharded_not_ported(stream, streamed):
+def test_scored_and_sharded_not_ported(stream, streamed, monkeypatch):
     """Scored retrieval is ported (it answers like the reference); the
-    sharded engine and ``validate=True`` still raise, naming their
-    ROADMAP items."""
+    sharded engine still raises, naming its ROADMAP item.  A
+    ``validate=True`` engine validates at every rollover and compaction
+    and ends in the reference's state."""
     j, t = streamed
     q = stream["queries"][0]
     for got, want in ((t.scored_topk(q, 3), j.scored_topk(q, 3)),
@@ -154,11 +155,20 @@ def test_scored_and_sharded_not_ported(stream, streamed):
                        j.dispatch("scored", [q], k=3).wait()[0])):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tl.ShardedLifecycleEngine()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.LifecycleEngine(t.layout, VOCAB, SEG, max_slices=4, max_len=8,
-                           validate=True, device="cpu")
+    _, v = make_pair(stream, validate=True)
+    calls = []
+    real = tl.LifecycleEngine.validate_invariants
+    monkeypatch.setattr(tl.LifecycleEngine, "validate_invariants",
+                        lambda self: calls.append(real(self)))
+    docs = stream["docs"]
+    for i in range(0, N_DOCS - BATCH // 2, BATCH):
+        v.ingest(docs[i: i + BATCH])
+    v.ingest(docs[N_DOCS - BATCH // 2:])
+    assert v.validate
+    assert len(calls) == v.stats.rollovers >= 3     # one per rollover
+    assert_engines_equal(j, v, "validate=True")
 
 
 def _jax_dump(j):

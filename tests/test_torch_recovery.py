@@ -238,14 +238,23 @@ def test_damage_raises_corrupt(stream, fed, tmp_path, damage):
 
 
 def test_unsupported_archives_name_their_roadmap_item(stream, tmp_path):
+    """Sharded archives still name their ROADMAP item; ``validate=True``
+    restores validate the state (a tampered leaf whose CRCs were
+    recomputed restores silently without it and raises with it)."""
+    from repro_torch.analysis import faults, invariants
     path = str(tmp_path / "x.snap")
-    meta = trec.snapshot(port_engine(stream), path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    trec.snapshot(feed(port_engine(stream), stream["batches"][:3]), path)
+    eng = trec.restore(path, device="cpu", validate=True)
+    assert eng.validate and invariants.check_engine(eng).ok
+    faults.rewrite_leaf(path, "active/freq", lambda f: f + (f > 0))
+    trec.restore(path, device="cpu")
+    with pytest.raises(invariants.InvariantViolation, match="freq"):
         trec.restore(path, device="cpu", validate=True)
+    meta = trec.snapshot(port_engine(stream), path)
     _, arrays = trec.read_archive(path)
     trec.write_archive(path, dict(meta, kind="sharded", num_shards=4),
                        sorted(arrays.items()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         trec.restore(path, device="cpu")
     trec.write_archive(path, meta, [(k, v) for k, v in arrays.items()
                                     if k != "active/freq"])
