@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port (the streaming index, the paged-KV
-decoder server and recsys serving) on one GPU.
+"""Drive the PyTorch/CUDA port (the streaming index, single-device and
+document-sharded, the paged-KV decoder server and recsys serving) on one
+GPU.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,7 @@ Phases, in order (any failure raises and exits non-zero):
      L2-flushed, beside the byte bound and gather + sdpa, at B = 32 and
      B = 1 at full length and on the final serving state; the paged decode
      against the dense decode in fp32 (4 sequences in lockstep, every
-     greedy token equal); then 64 requests on 32 slots (max_len 2048) in
+     greedy token equal); then 40 requests on 32 slots (max_len 2048) in
      bf16, with the kernel held against its plain version again on the
      final serving state.
 
@@ -89,8 +90,31 @@ Phases, in order (any failure raises and exits non-zero):
      with ``device="cuda"``.  Phases 7a and 7c run right after phase 3,
      on its engine and its stream.
 
+  8. the document-sharded index: (a) phase 3's stream through a
+     ``ShardedLifecycleEngine`` over ``make_doc_mesh(4)`` (docid d on
+     shard d % 4, every shard's ``[S, ...]`` state stacked on the card,
+     Earlybird's 2**23-tweet segment as 2**21 local docs a shard, pools
+     sized from each shard's own substream), one rollover, 2**20 more
+     tweets, phase 3's query batches of every kind held against phase
+     3's brute force; ``bulk_append`` launched 4 times a batch,
+     ``intersect_mask`` (the shards' batched conjunctions) and the two
+     batched frozen-segment kernels launched; the sharded route's own
+     ``intersect_mask`` calls replayed bit-equal to the plain version
+     and timed beside their bound and ``searchsorted`` + ``gather``;
+     ingest docs/s, rollover s, ms per query batch, traced batches,
+     peak memory and each shard's slots against phase 3's; (b) at
+     phase 4's 2**16-tweet segments: >= 3 rollovers with compaction,
+     batched == ``batched=False`` == brute force, journal + snapshot,
+     recovery on the card with an equal fingerprint, a two-shard mesh
+     and a truncated archive refused, every ``FaultPlan`` kind on four
+     shards, and the ServeLoop over a sharded engine (emergency
+     rollover, a rejection with retry-after, ``check_serve`` and
+     ``check_engine``).  Phase 8 runs last of the index phases, after
+     phase 3's engine is gone.
+
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
-and 6, ``--serve-only`` phases 1, 3 and 7 (short rehearsals);
+and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
+and 8 (with a brute force of its own) (short rehearsals);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
@@ -134,7 +158,10 @@ from repro_torch.core import pointers  # noqa: E402
 from repro_torch.core import recovery  # noqa: E402
 from repro_torch.core import serve, slicepool  # noqa: E402
 from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
-from repro_torch.core.lifecycle import LifecycleEngine  # noqa: E402
+from repro_torch.core.lifecycle import (  # noqa: E402
+    AdmissionController, LifecycleEngine, ShardedLifecycleEngine)
+from repro_torch.core.sharded_index import (  # noqa: E402
+    engine_max_len, make_doc_mesh)
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
@@ -179,6 +206,7 @@ SOURCES = {
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
 }
 SCORED_K = 10                # the scored top-k route's k
+INVALID = 0xFFFFFFFF         # the lists' pad and the heap's NULL
 
 
 def log(msg: str) -> None:
@@ -738,12 +766,15 @@ def top_ops(prof: dict, digits: int = 1) -> str:
 def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
     """One traced ingest batch and one traced query batch of each kind
     (:func:`device_profile`).  Runs after the measured main path, whose
-    launch counts it leaves alone."""
+    launch counts it leaves alone.  Returns each one's wall and device
+    ms, idle share and top ops by name."""
     calls = [("ingest", lambda: eng.ingest(docs))] + [
         (kind, lambda c=call, b=batch: c(b[:q_rows])) for kind, batch, call
         in query_calls(eng, queries, pairs)]
+    out = {}
     for name, fn in calls:
         p = device_profile(fn)
+        out[name] = {k: p[k] for k in ("wall_ms", "busy_ms", "idle", "top")}
         log(f"profile {name}: wall {p['wall_ms']:.1f} ms, device busy "
             f"{p['busy_ms']:.1f} ms ({100 * p['idle']:.0f}% idle); top: "
             + top_ops(p))
@@ -756,6 +787,7 @@ def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
             log(f"profile ingest: bulk_append_kernel {ms:.4f} ms over {n} "
                 f"launch(es) in the traced batch"
                 + (f" ({ms / n:.4f} ms each)" if n else ""))
+    return out
 
 
 def oracle_answers(bf: BruteForce, queries, pairs):
@@ -808,9 +840,9 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         f"filled the segment + rollover (freeze, reclaim) "
         f"{t_roll:.3f} s; {extra_docs} docs into recycled slices in "
         f"{t_after:.3f} s = {extra_docs / t_after:.0f} docs/s")
+    live = eng.memory_slots_used()
     log(f"pools: high-water {hw_slots} slots at rollover, {hw_after} after "
-        f"{extra_docs} more docs (bounded by reclamation); live "
-        f"{eng.memory_slots_used()}")
+        f"{extra_docs} more docs (bounded by reclamation); live {live}")
     queries, pairs = query_batch(docs[:total], vocab, n_queries, seed=1)
     ingest_peak = torch.cuda.max_memory_allocated()
     res = run_queries(eng, queries, pairs, q_rows)
@@ -848,7 +880,9 @@ def phase_main(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         query_ms={k: float(np.median(v[1])) for k, v in res.items()},
         query_peak_bytes={k: v[2] for k, v in res.items()},
         scored_blocks_skipped=skip[0], scored_blocks_live=skip[1],
-        high_water_slots=hw_after, peak_bytes=peak, launches=counts)
+        high_water_slots=hw_after, live_slots=live,
+        high_water_slots_at_rollover=hw_slots, peak_bytes=peak,
+        launches=counts, oracle=(queries, pairs, want))
     if keep:
         return summary, eng
     del eng
@@ -982,17 +1016,20 @@ FULL_BUCKET = 32              # ServeConfig().max_batch: one full bucket
 # flushes a full bucket: the rung's capacity.  A traced step is left out
 # of the stretch's times and latencies (the profiler slows it); the
 # forced full stretches are not traced, since the profiler takes 5-30 s
-# to read one such step.
-SERVE_STRETCHES = (("exhaustive", 0, 35, (0, 9, 18, 27), 10, True),
-                   ("early_exit", 1, 35, (0, 9, 18, 27), 10, True),
-                   ("reduced_k", 2, 35, (0, 9, 18, 27), 10, True),
-                   ("frozen_only", 3, 35, (0, 9, 18, 27), 10, True),
+# to read one such step.  The full stretches take 4 steps a forced rung
+# and, to keep the script within its time limit, 8 under the gauge; the
+# light forced stretches take the batches left over (37 each), and of
+# them only the exhaustive one is traced.
+SERVE_STRETCHES = (("exhaustive", 0, 37, (0, 9, 18, 27), 10, True),
+                   ("early_exit", 1, 37, (0, 9, 18, 27), 10, False),
+                   ("reduced_k", 2, 37, (0, 9, 18, 27), 10, False),
+                   ("frozen_only", 3, 37, (0, 9, 18, 27), 10, False),
                    ("gauge", None, 84, (0, 21, 42, 63, 82), 10, True),
                    ("exhaustive_full", 0, 4, range(4), FULL_BUCKET, False),
                    ("early_exit_full", 1, 4, range(4), FULL_BUCKET, False),
                    ("reduced_k_full", 2, 4, range(4), FULL_BUCKET, False),
                    ("frozen_only_full", 3, 4, range(4), FULL_BUCKET, False),
-                   ("gauge_full", None, 16, range(16), FULL_BUCKET, True))
+                   ("gauge_full", None, 8, range(8), FULL_BUCKET, True))
 
 
 def stream_answer(bf: BruteForce, kind: str, terms, n_docs: int):
@@ -1179,6 +1216,7 @@ def serve_stretch(drv: ServeDriver, name: str, level, n_batches: int,
         ms_per_ingest_step=float(np.median(steps)) if steps else None,
         ms_per_query_step=float(np.median(qsteps)),
         query_steps=len(qsteps),
+        query_step_ms=qsteps,
         latency_p50_ms=float(np.percentile(lat, 50)) if lat else None,
         latency_p99_ms=float(np.percentile(lat, 99)) if lat else None,
         traced_wall_ms=prof and prof["wall_ms"],
@@ -1198,7 +1236,9 @@ def serve_stretch(drv: ServeDriver, name: str, level, n_batches: int,
         f"{row['ms_per_step']:.1f} ms per step (ingest-only median "
         + (f"{row['ms_per_ingest_step']:.1f}" if steps else "none")
         + f", the {len(qsteps)} untraced that dispatched requests "
-        f"{row['ms_per_query_step']:.1f}); request latency p50 "
+        f"{row['ms_per_query_step']:.1f}; each "
+        + ", ".join(f"{x:.1f}" for x in qsteps)
+        + f"); request latency p50 "
         f"{row['latency_p50_ms'] or 0:.1f} ms, p99 "
         f"{row['latency_p99_ms'] or 0:.1f} ms (untraced steps); " + traced)
     return row
@@ -1763,7 +1803,7 @@ def traced_decode_step(server, params, state) -> dict:
     return dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"], idle=p["idle"])
 
 
-def phase_paged(seed: int, requests: int = 64, max_seqs: int = 32,
+def phase_paged(seed: int, requests: int = 40, max_seqs: int = 32,
                 max_len: int = 2048):
     torch.manual_seed(seed)        # the kernel checks' random inputs
     cfg = registry.get("tinyllama-1.1b").config
@@ -1927,11 +1967,13 @@ def save_segment_calls(path: str, segment_log2: int) -> None:
 
 
 def phase_index(segment_log2: int, serve_only: bool = False):
-    """Phases 2-4 and 7 (the streaming index and search serving) around
-    one full-width stream: phase 3's engine goes on to serve (7a), its
-    history drives Table 2 (7c), phase 4 and the crash under serve (7b)
-    run at 2**16-tweet segments.  Returns the kernel rows (none with
-    ``serve_only``, which leaves out phases 2 and 4)."""
+    """Phases 2-4, 7 and 8 (the streaming index, search serving and the
+    sharded index) around one full-width stream: phase 3's engine goes
+    on to serve (7a), its history drives Table 2 (7c), phase 4 and the
+    crash under serve (7b) run at 2**16-tweet segments, then the stream
+    and phase 3's brute force serve the sharded engine (8).  Returns
+    the kernel rows (none with ``serve_only``, which leaves out phases
+    2, 4 and 8)."""
     docs, layout, vocab, seg_docs, extra, fmax = index_stream(segment_log2)
     q_rows = 8
     if not serve_only:
@@ -1939,6 +1981,7 @@ def phase_index(segment_log2: int, serve_only: bool = False):
                                 seed=5)
     main_sum, eng = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
                                n_queries=64, fmax=fmax, keep=True)
+    oracle = main_sum.pop("oracle")
     t0 = time.perf_counter()
     n = checked_routes()
     log(f"checked routes on the card: {n} kernels, each launched once "
@@ -1947,7 +1990,7 @@ def phase_index(segment_log2: int, serve_only: bool = False):
     with tempfile.TemporaryDirectory() as tmp:
         serve_sum = phase_serve(eng, docs, vocab, seed=11, tmp=tmp)
     hist = eng.segments.history_freqs()
-    del eng, docs
+    del eng
     torch.cuda.empty_cache()
     log(f"phase 7a (serving at full width) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1965,6 +2008,11 @@ def phase_index(segment_log2: int, serve_only: bool = False):
         k: v for k, v in main_sum.items() if k != "launches"}))
     if serve_only:
         return []
+    sharded = phases_sharded(docs, vocab, seg_docs, extra, q_rows, oracle,
+                             single={k: main_sum[k] for k in (
+                                 "high_water_slots", "live_slots",
+                                 "high_water_slots_at_rollover")})
+    del docs
 
     table = []
     for name in ("bulk_append", "segment_intersect_mask_batched",
@@ -1973,16 +2021,469 @@ def phase_index(segment_log2: int, serve_only: bool = False):
         r = kernels[name]
         on_main = name in ("bulk_append", "segment_intersect_mask_batched",
                            "scored_intersect_batched")
-        table.append(dict(
+        paths = ({"main": main_sum["launches"][name]} if on_main
+                 else {"sequential": seq_counts[name]})
+        if name != "segment_intersect_mask":
+            paths["sharded"] = sharded["launches"][name]
+        row = dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name],
-            launches=(main_sum["launches"] if on_main
-                      else seq_counts)[name],
-            path="main" if on_main else "sequential",
+            replaces=REPLACES[name], launches=sum(paths.values()),
+            path="+".join(paths), launches_by_path=paths,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes",
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"])
+        if name == "intersect_mask":
+            row["sharded_calls"] = {k: sharded["intersect_mask"][k] for k in (
+                "calls", "seq_device_ms", "seq_bound_ms", "max_abs_err",
+                "ms", "ms_cold", "device_ms", "plain_ms", "library_ms",
+                "bound_ms")}
+        table.append(row)
     return table
+
+
+def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
+                   q_rows: int, oracle=None, single=None) -> dict:
+    """Phase 8 (a) at full width and (b) at phase 4's depth; logs and
+    returns 8(a)'s summary."""
+    t0 = time.perf_counter()
+    full = phase_sharded(docs, vocab, seg_docs, extra, q_rows, 64,
+                         oracle=oracle, single=single)
+    log(f"phase 8a (sharded, full width) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        small = phase_sharded_small(tmp)
+    log(f"phase 8b (sharded, phase 4 depth) {time.perf_counter() - t0:.1f} s")
+    log("sharded: " + json.dumps(dict(
+        {k: v for k, v in full.items() if k != "launches"}, small=small,
+        launches=full["launches"])))
+    return full
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the document-sharded index, four shards stacked on the card
+# ---------------------------------------------------------------------------
+SHARDS = 4                    # S: docid d lives on shard d % S
+
+
+def shard_layout(docs: np.ndarray, vocab: int, seg_docs: int,
+                 n_shards: int = SHARDS):
+    """Pools sized by :func:`size_layout` from each shard's own
+    residue-class substream ``docs[s::S]`` (segments of ``seg_docs / S``
+    local docs); one layout serves every shard, so each pool takes the
+    largest shard's size.  Returns ``(layout, need, fmax)`` with the
+    largest shard's per-pool need and per-shard head-term frequency."""
+    per = [size_layout(docs[s::n_shards], vocab, seg_docs // n_shards)
+           for s in range(n_shards)]
+    spp = tuple(max(lay.slices_per_pool[p] for lay, _, _ in per)
+                for p in range(len(Z)))
+    need = np.max([n for _, n, _ in per], axis=0)
+    return (pointers.production_layout(spp), need,
+            max(f for _, _, f in per))
+
+
+def sharded_engine(layout, vocab: int, seg_docs: int, fmax: int, **kw):
+    return ShardedLifecycleEngine(
+        layout, vocab, seg_docs, make_doc_mesh(SHARDS, device="cuda"),
+        max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+        max_len=engine_max_len(fmax), device="cuda", **kw)
+
+
+def _prefix_rows(x):
+    """An ascending INVALID-padded list tensor as its rows' valid
+    prefixes (int32 values, int64 lengths) and its shape; raises if a
+    row's valid entries are not a prefix."""
+    valid = x != INVALID
+    n = valid.sum(-1)
+    lane = torch.arange(x.shape[-1], device=x.device)
+    if not torch.equal(valid, lane < n[..., None]):
+        raise AssertionError("an intersect_mask input row is not an "
+                             "INVALID-padded prefix")
+    return x[valid].to(torch.int32), n, tuple(x.shape)
+
+
+def _unprefix(vals, n, shape):
+    out = torch.full(shape, INVALID, dtype=torch.int64, device=vals.device)
+    lane = torch.arange(shape[-1], device=vals.device)
+    out[lane < n[..., None]] = vals.long()
+    return out
+
+
+def sharded_intersect_calls(calls, flush) -> dict:
+    """The sharded route's own ``intersect_mask`` calls (kept as valid
+    prefixes, rebuilt at their padded shapes): each twice on the card,
+    bit-equal to ``intersect_mask_ref``; the whole sequence under the
+    profiler beside its summed byte bound; and the call that needs the
+    most bytes warm, L2-flushed, by the profiler, beside its plain
+    version, ``searchsorted`` + ``gather`` and its bound."""
+    need, top, err = 0, None, 0
+    for i, (pa, pb) in enumerate(calls):
+        a, b = _unprefix(*pa), _unprefix(*pb)
+        want = ref.intersect_mask_ref(a, b)
+        for k in range(2):
+            err = max(err, require_equal(
+                f"intersect_mask sharded call {i} (replay {k})",
+                ops.intersect_mask(a, b), want))
+        nb = tim.bound_bytes(a, b)[0]
+        need += nb
+        if top is None or nb > top[0]:
+            top = (nb, i)
+    del a, b, want
+
+    def replay():
+        for pa, pb in calls:
+            ops.intersect_mask(_unprefix(*pa), _unprefix(*pb))
+    seq_ms, seen = profiled_total_ms(replay, "intersect_mask")
+    if seen != len(calls):
+        raise AssertionError(f"profiler saw {seen} intersect_mask kernels "
+                             f"for {len(calls)} calls")
+    a, b = (_unprefix(*p) for p in calls[top[1]])
+    W = b.shape[-1]
+
+    def call():
+        return ops.intersect_mask(a, b)
+
+    def library():
+        pos = torch.searchsorted(b, a).clamp_(max=W - 1)
+        return torch.gather(b, -1, pos) == a
+    r = dict(calls=len(calls), max_abs_err=err, seq_device_ms=seq_ms,
+             seq_bound_ms=need / HBM_BYTES_PER_S * 1e3, seq_bytes=need,
+             ms=cuda_ms(call), ms_cold=cuda_ms_cold(call, flush),
+             device_ms=profiled_ms(call, "intersect_mask")[0],
+             plain_ms=cuda_ms(lambda: ref.intersect_mask_ref(a, b)),
+             library_ms=cuda_ms(library), bytes=top[0],
+             bound_ms=top[0] / HBM_BYTES_PER_S * 1e3,
+             shape=f"a {tuple(a.shape)} ({int((a != INVALID).sum())} "
+                   f"valid), b {tuple(b.shape)} "
+                   f"({int((b != INVALID).sum())} valid)")
+    log(f"sharded intersect_mask: {len(calls)} calls of the sharded route "
+        f"replayed twice, bit-equal to the plain version; the sequence "
+        f"{seq_ms:.4f} ms by the profiler ({seq_ms / len(calls):.4f} ms "
+        f"each) against its bound {r['seq_bound_ms']:.4f} ms ({need} "
+        f"bytes); its largest call, {r['shape']}: {r['ms']:.4f} ms warm, "
+        f"{r['ms_cold']:.4f} L2-flushed, "
+        + ("profiler not measured" if r["device_ms"] is None else
+           f"{r['device_ms']:.4f} by the profiler")
+        + f"; plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+        f"ms, bound {r['bound_ms']:.4f} ms ({top[0]} bytes)")
+    return r
+
+
+def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
+                  extra_docs: int, q_rows: int, n_queries: int,
+                  oracle=None, single=None) -> dict:
+    """8(a): phase 3's stream through a four-shard
+    ``ShardedLifecycleEngine`` at Earlybird's 2**23-tweet segment (2**21
+    local docs a shard), one rollover, 2**20 more tweets, then phase 3's
+    query batches of every kind held against phase 3's brute force
+    (``oracle``: its queries, pairs and answers; made here when None).
+    ``single``: phase 3's slots, for the cost of partitioning."""
+    t0 = time.perf_counter()
+    layout, need, fmax = shard_layout(docs, vocab, seg_docs)
+    log(f"sharded: {SHARDS} shards of {seg_docs // SHARDS} local docs a "
+        f"segment; pools {layout.slices_per_pool} slices a shard for the "
+        f"largest shard's analytic need {tuple(int(x) for x in need)} "
+        f"({layout.total_slots} slots a shard); shard head-term freq "
+        f"{fmax}, per-shard max_len {engine_max_len(fmax)}; sized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = sharded_engine(layout, vocab, seg_docs, fmax)
+    total = seg_docs + extra_docs
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, total, BATCH):
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+        eng.ingest(docs[s: s + BATCH])
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize()
+            t_roll = time.perf_counter() - t0 - t_first
+            hw_roll = eng.stats.high_water_slots
+    torch.cuda.synchronize()
+    t_after = time.perf_counter() - t0 - t_first - t_roll
+    eng.check_health()
+    if eng.stats.rollovers != 1:
+        raise AssertionError(f"expected one rollover, saw "
+                             f"{eng.stats.rollovers}")
+    ingest_counts = ops.launch_counts()
+    n_batches = total // BATCH
+    if ingest_counts["bulk_append"] != SHARDS * n_batches:
+        raise AssertionError(f"bulk_append launched "
+                             f"{ingest_counts['bulk_append']} times for "
+                             f"{n_batches} batches of {SHARDS} shards")
+    st = eng.segments.active.state
+    sizes = np.asarray(layout.slice_sizes, np.int64)
+    shard_live = slicepool.shard_slots_used(layout, st)
+    shard_hw = (st.watermark.cpu().numpy().astype(np.int64)
+                * sizes).sum(1)
+    log(f"sharded ingest: {seg_docs - BATCH} docs in {t_first:.3f} s = "
+        f"{(seg_docs - BATCH) / t_first:.0f} docs/s ({SHARDS} bulk_append "
+        f"launches and {SHARDS} plan host syncs a batch); the batch that "
+        f"filled the segment + rollover (4 freezes, reclaim) {t_roll:.3f} "
+        f"s; {extra_docs} docs into recycled slices in {t_after:.3f} s = "
+        f"{extra_docs / t_after:.0f} docs/s")
+    log(f"sharded pools: high-water {hw_roll} slots at rollover, "
+        f"{eng.memory_high_water_slots()} after; live "
+        f"{eng.memory_slots_used()}; per shard live "
+        f"{shard_live.tolist()}, high-water {shard_hw.tolist()}"
+        + ("" if single is None else
+           f"; single device (phase 3, same stream): high-water "
+           f"{single['high_water_slots']}, live {single['live_slots']}"))
+    if oracle is None:
+        t0 = time.perf_counter()
+        queries, pairs = query_batch(docs[:total], vocab, n_queries, seed=1)
+        bf = BruteForce(docs[:total], {t for q in queries for t in q},
+                        vocab)
+        oracle = (queries, pairs, oracle_answers(bf, queries, pairs))
+        del bf
+        log(f"sharded: brute force of its own in "
+            f"{time.perf_counter() - t0:.1f} s")
+    queries, pairs, want = oracle
+    calls, real = [], ops.intersect_mask
+
+    def spy(a, b):              # keeps the call's valid prefixes
+        calls.append((_prefix_rows(a), _prefix_rows(b)))
+        return real(a, b)
+    ops.intersect_mask = spy
+    try:
+        res = run_queries(eng, queries, pairs, q_rows)
+    finally:
+        ops.intersect_mask = real
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [r[2] for r in res.values()])
+    for kind, (_, times, kpeak) in res.items():
+        log(f"sharded query {kind}: {len(times)} batches of {q_rows}: "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
+            f"{np.median(times):.1f} ms; peak device memory "
+            f"{kpeak / 2**30:.2f} GiB")
+    log(f"sharded-path launches: {json.dumps(counts)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    for k in ("intersect_mask", "segment_intersect_mask_batched",
+              "scored_intersect_batched"):
+        if counts[k] <= 0:
+            raise AssertionError(f"sharded path never launched {k}")
+    if len(calls) != counts["intersect_mask"]:
+        raise AssertionError(f"{len(calls)} intersect_mask calls seen, "
+                             f"{counts['intersect_mask']} launches counted")
+    for kind, (got, _, _) in res.items():
+        check_answers(f"sharded {kind}", got, want[kind])
+    log(f"sharded brute force: {n_queries} queries of each kind agree "
+        f"with phase 3's brute force")
+    prof = profile_paths(eng, docs[total: total + BATCH], queries, pairs,
+                         q_rows)
+    del eng, st
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    im = sharded_intersect_calls(calls, flush)
+    log(f"sharded intersect_mask replay and timing "
+        f"{time.perf_counter() - t0:.1f} s")
+    del calls, flush
+    torch.cuda.empty_cache()
+    return dict(
+        ingest_docs_per_s=(seg_docs - BATCH) / t_first,
+        recycled_docs_per_s=extra_docs / t_after, rollover_s=t_roll,
+        query_ms={k: float(np.median(v[1])) for k, v in res.items()},
+        query_peak_bytes={k: v[2] for k, v in res.items()},
+        peak_bytes=peak, high_water_slots_at_rollover=hw_roll,
+        shard_live_slots=shard_live.tolist(),
+        shard_high_water_slots=shard_hw.tolist(),
+        single_device_slots=single, profile=prof,
+        launches=dict(counts, bulk_append=ingest_counts["bulk_append"]),
+        intersect_mask=im)
+
+
+def _sym_batches(n: int, V: int = 64) -> list:
+    """Batches that split term for term across four shards."""
+    return [np.arange(d, d + V, dtype=np.int32).reshape(V, 1) % V
+            for d in range(0, n * V, V)]
+
+
+def sharded_serving() -> dict:
+    """The reference's sharded serving case on the card: per-shard pools
+    a quarter of a single-device engine's over a stream that splits term
+    for term across shards, so emergency rollovers and engine sheds
+    agree batch for batch with the single-device engine; the ServeLoop
+    over the sharded engine reaches an emergency rollover, answers at
+    rungs 0 and 3 like the single-device engine, rejects an ingest batch
+    with a retry-after under pool pressure and takes it after a
+    rollover; ``check_serve`` and ``check_engine`` on the final state."""
+    def mk(adm, sharded):
+        if sharded:
+            return ShardedLifecycleEngine(
+                pointers.PoolLayout(z=Z, slices_per_pool=(64, 24, 6, 2)),
+                128, 100_000, make_doc_mesh(SHARDS, device="cuda"),
+                max_slices=64, max_len=64, admission=adm, device="cuda")
+        return LifecycleEngine(
+            pointers.PoolLayout(z=Z, slices_per_pool=(256, 96, 24, 8)),
+            128, 100_000, max_slices=64, max_len=64, admission=adm,
+            device="cuda")
+    batches = _sym_batches(30)
+    e1 = mk(AdmissionController(rollover_at=0.6), False)
+    e4 = mk(AdmissionController(rollover_at=0.6), True)
+    loop = serve.ServeLoop(e4, serve.ServeConfig(default_k=8))
+    for docs in batches:
+        if not e1.ingest(docs):
+            raise AssertionError("the single-device engine shed a batch")
+        if not isinstance(loop.submit_ingest(docs), int):
+            raise AssertionError("the loop rejected a batch below its "
+                                 "pool-pressure limit")
+        loop.step(force=True)
+    if not e1.stats.emergency_rollovers == e4.stats.emergency_rollovers > 0:
+        raise AssertionError(
+            f"emergency rollovers: single {e1.stats.emergency_rollovers}, "
+            f"sharded {e4.stats.emergency_rollovers}")
+    for level in (serve.DEGRADE_NONE, serve.DEGRADE_FROZEN_ONLY):
+        loop.force_level = level
+        loop.submit_query("conjunctive", (3, 7), k=8)
+        loop.step(force=True)
+        (r,) = loop.take_responses()
+        full = e1.conjunctive([3, 7])
+        if level == serve.DEGRADE_FROZEN_ONLY:
+            full = full[full < e4.doc_base][:2]
+        if not np.array_equal(r.docids, full):
+            raise AssertionError(f"sharded serving at rung {level} differs "
+                                 f"from the single-device engine")
+    invariants.check_serve(loop).raise_if_failed()
+    invariants.check_engine(e4).raise_if_failed()
+
+    def adm():
+        return AdmissionController(rollover_at=0.6, shed_at=0.6,
+                                   min_segment_docs=10_000)
+    h1, h4 = mk(adm(), False), mk(adm(), True)
+    for docs in batches:
+        if h1.ingest(docs) != h4.ingest(docs):
+            raise AssertionError("engine sheds differ between the sharded "
+                                 "and the single-device engine")
+    if not h1.stats.shed_batches == h4.stats.shed_batches > 0:
+        raise AssertionError("no batch was shed")
+    loop = serve.ServeLoop(h4, serve.ServeConfig(ingest_reject_util=0.6))
+    rej = loop.submit_ingest(batches[0])
+    if not (isinstance(rej, serve.Rejected) and rej.reason ==
+            "pool_pressure" and rej.retry_after_s > 0):
+        raise AssertionError(f"expected a pool-pressure rejection with "
+                             f"retry-after, got {rej!r}")
+    h4.segments.rollover()
+    h4._sync_frozen()
+    if not isinstance(loop.submit_ingest(batches[0]), int):
+        raise AssertionError("the retried batch was rejected after the "
+                             "rollover")
+    loop.step(force=True)
+    if loop.stats.ingest_applied != 1:
+        raise AssertionError("the retried batch was not applied")
+    invariants.check_serve(loop).raise_if_failed()
+    invariants.check_engine(h4).raise_if_failed()
+    out = dict(emergency_rollovers=e4.stats.emergency_rollovers,
+               engine_sheds=h4.stats.shed_batches,
+               retry_after_s=rej.retry_after_s)
+    log(f"sharded serving: {json.dumps(out)}; rungs 0 and 3 equal the "
+        f"single-device engine; the rejected batch landed after a "
+        f"rollover; check_serve and check_engine ok")
+    return out
+
+
+def phase_sharded_small(tmp: str) -> dict:
+    """8(b): phase 4's stream at its 2**16-tweet segments over four
+    shards: >= 3 rollovers under CompactionPolicy(fanout=2), every batch
+    journaled and a snapshot mid-stream; every query kind batched and
+    ``batched=False``, bit-equal and equal to the brute force; recovery
+    on the card with an equal fingerprint; a two-shard mesh and a
+    truncated archive refused; every ``FaultPlan`` kind on a four-shard
+    mesh; the sharded serving case."""
+    small = 1 << 16
+    vocab = 1 << 16
+    sdocs = make_stream(vocab, 4 * small + small // 2, seed=7)
+    layout, _, fmax = shard_layout(sdocs, vocab, small)
+    eng = sharded_engine(layout, vocab, small, fmax,
+                         compaction=CompactionPolicy(fanout=2))
+    snap = os.path.join(tmp, "sharded.snap")
+    jrnl = os.path.join(tmp, "sharded.jrnl")
+    starts = range(0, sdocs.shape[0], BATCH)
+    snap_at = len(starts) // 2
+    with recovery.IngestJournal(jrnl) as journal:
+        for i, s in enumerate(starts):
+            if i == snap_at:
+                recovery.snapshot(eng, snap, seq=i)
+            journal.append(sdocs[s: s + BATCH])
+            eng.ingest(sdocs[s: s + BATCH])
+    eng.check_health()
+    fp = recovery.engine_fingerprint(eng)
+    tiers = [fz.tier for fz in eng.segments.frozen]
+    rolls = (eng.stats.rollovers, eng.stats.compactions)
+    if rolls[0] < 3 or rolls[1] < 1:
+        raise AssertionError(f"rollovers {rolls[0]}, compactions "
+                             f"{rolls[1]}")
+    queries, pairs = query_batch(sdocs, vocab, 16, seed=2)
+    batched = run_queries(eng, queries, pairs, 16)
+    eng.batched = False
+    seq = run_queries(eng, queries, pairs, 16)
+    bf = BruteForce(sdocs, {t for q in queries for t in q}, vocab)
+    want = oracle_answers(bf, queries, pairs)
+    for kind in batched:
+        check_answers(f"sharded {kind} batched", batched[kind][0],
+                      want[kind])
+        check_answers(f"sharded {kind} sequential", seq[kind][0],
+                      want[kind])
+    invariants.check_engine(eng).raise_if_failed()
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = recovery.recover(snap, jrnl, expect_seq=len(starts),
+                           device="cuda")
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    if recovery.engine_fingerprint(rec) != fp:
+        raise AssertionError("the recovered sharded engine's fingerprint "
+                             "differs from the uncrashed engine's")
+    got = run_queries(rec, queries, pairs, 16)
+    for kind in got:
+        check_answers(f"sharded {kind} recovered", got[kind][0],
+                      batched[kind][0])
+    del rec
+    try:
+        recovery.restore(snap, mesh=make_doc_mesh(2, device="cuda"),
+                         device="cuda")
+    except ValueError as exc:
+        if "shard" not in str(exc):
+            raise
+    else:
+        raise AssertionError("a four-shard archive restored on two shards")
+    with open(snap, "rb") as f:
+        blob = f.read()
+    cut = os.path.join(tmp, "sharded_cut.snap")
+    with open(cut, "wb") as f:
+        f.write(blob[: len(blob) * 2 // 5])
+    try:
+        recovery.restore(cut, device="cuda")
+    except recovery.CorruptSnapshotError:
+        pass
+    else:
+        raise AssertionError("a truncated sharded archive restored")
+    log(f"sharded phase 4 depth: {len(starts)} batches over {SHARDS} "
+        f"shards, {rolls[0]} rollovers, {rolls[1]} compactions, frozen "
+        f"tiers {tiers}; {len(queries)} queries of "
+        f"each kind batched == sequential == brute force; snapshot at "
+        f"batch {snap_at} ({len(blob)} bytes), recovered on the card in "
+        f"{t_rec:.2f} s with an equal fingerprint and equal answers; a "
+        f"two-shard mesh raises ValueError, a truncated archive "
+        f"CorruptSnapshotError")
+    torch.cuda.empty_cache()
+    kinds = {}
+    for kind in faults.KINDS:
+        res = faults.run_plan(faults.FaultPlan(kind=kind, seed=13), tmp,
+                              mesh=make_doc_mesh(SHARDS, device="cuda"),
+                              device="cuda")
+        kinds[kind] = ("raised" if res.raised is not None else
+                       f"recovered (crashed={res.crashed})")
+    log(f"sharded fault plans on the card: {json.dumps(kinds)}")
+    return dict(recover_s=t_rec, archive_bytes=len(blob), tiers=tiers,
+                rollovers=rolls[0], compactions=rolls[1],
+                fault_plans=kinds, serving=sharded_serving())
 
 
 # ---------------------------------------------------------------------------
@@ -2409,6 +2910,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="run only the build, the main path (phase 3) and "
                          "search serving (phase 7)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run only the build and the sharded index (phase "
+                         "8, with its own brute force)")
     ap.add_argument("--intersect-calls", default="", metavar="PATH",
                     help="run only the build and phase 4, and save the "
                          "sequential route's intersect_mask inputs to PATH "
@@ -2440,9 +2944,14 @@ def main(argv=None) -> int:
         save_segment_calls(args.segment_calls, args.segment_log2)
     elif args.bag_calls:
         save_bag_calls(args.bag_calls, seed=0)
+    elif args.sharded_only:
+        docs, _, vocab, seg_docs, extra, _ = index_stream(args.segment_log2)
+        phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
+        del docs
     elif not (args.paged_only or args.recsys_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
-    if not (args.recsys_only or args.serve_only or saving):
+    only = args.serve_only or args.sharded_only
+    if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
         table.append(dict(
@@ -2455,7 +2964,7 @@ def main(argv=None) -> int:
             bound_by="bytes", library_ms=row["library_ms"]))
         log("paged serving: " + json.dumps(paged_sum))
         log(f"paged phase {time.perf_counter() - t0:.1f} s")
-    if not (args.paged_only or args.serve_only or saving):
+    if not (args.paged_only or only or saving):
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")

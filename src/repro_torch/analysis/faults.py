@@ -43,8 +43,9 @@ compaction funnel through — ``slicepool.release_slices`` (which
 ``segments`` calls through the module) and ``segments._merge_csr`` (a
 module global of ``segments``) — so a patch on the module bites, raising
 :class:`InjectedCrash` mid-operation; the harness then abandons the torn
-in-memory engine exactly as a dead process would.  Sharded plans
-(``mesh=``) wait for the document-sharding slice of the port.
+in-memory engine exactly as a dead process would.  A plan run with
+``mesh=`` (:func:`~repro_torch.core.sharded_index.make_doc_mesh`) drives
+a ``ShardedLifecycleEngine`` on the mesh's shards.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ from repro_torch.core import analytical
 from repro_torch.core import recovery as rec
 from repro_torch.core import segments as seg_mod
 from repro_torch.core import slicepool
-from repro_torch.core.lifecycle import AdmissionController, LifecycleEngine
+from repro_torch.core.lifecycle import (AdmissionController, LifecycleEngine,
+                                        ShardedLifecycleEngine)
 from repro_torch.core.pointers import PoolLayout
 
 CRASH_KINDS = ("crash_after_batch", "crash_mid_rollover",
@@ -136,20 +138,11 @@ def make_batches(plan: FaultPlan) -> List[np.ndarray]:
             for _ in range(plan.n_batches)]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded fault plans need the document-sharded engine, a "
-            "later slice of the port (ROADMAP.md, Queue 1 item 11)")
-
-
 def make_engine(plan: FaultPlan, mesh=None, *, device="cuda"):
     """A small engine on ``device`` sized so the plan's stream crosses
     several rollovers (and cascade merges when ``compaction_fanout`` is
-    set)."""
-    _no_mesh(mesh)
-    return LifecycleEngine(
-        _LAYOUT, _VOCAB, plan.docs_per_segment,
+    set); sharded over ``mesh`` when one is given."""
+    kw: Dict[str, Any] = dict(
         max_slices=int(analytical.slices_needed(_Z, _FMAX)) + 1,
         max_len=1 << (_FMAX - 1).bit_length(),
         use_kernel=False, validate=plan.validate,
@@ -159,6 +152,10 @@ def make_engine(plan: FaultPlan, mesh=None, *, device="cuda"):
             rollover_at=plan.admission_rollover_at)
             if plan.admission_rollover_at is not None else None),
         device=device)
+    if mesh is not None:
+        return ShardedLifecycleEngine(_LAYOUT, _VOCAB,
+                                      plan.docs_per_segment, mesh, **kw)
+    return LifecycleEngine(_LAYOUT, _VOCAB, plan.docs_per_segment, **kw)
 
 
 def query_results(engine) -> Tuple:
@@ -293,7 +290,6 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
     ``AssertionError`` (with the plan repr) on any contract violation —
     a recovered engine differing from the oracle, a corruption plan
     recovering silently, or a crash plan failing to recover."""
-    _no_mesh(mesh)
     batches = make_batches(plan)
     snap = os.path.join(workdir, "snap.bin")
     jrnl = os.path.join(workdir, "journal.bin")
@@ -301,7 +297,7 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
         if os.path.exists(p):
             os.remove(p)
 
-    eng = make_engine(plan, device=device)
+    eng = make_engine(plan, mesh, device=device)
     # bootstrap snapshot at seq 0 (production takes one at startup), so
     # a crash BEFORE the configured snapshot point recovers by replaying
     # the whole journal into the empty engine.
@@ -344,11 +340,12 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
     fingerprint_equal = False
     queries_equal = False
     try:
-        got = rec.recover(snap, jrnl, expect_seq=acked, device=device)
+        got = rec.recover(snap, jrnl, mesh=mesh, expect_seq=acked,
+                          device=device)
     except rec.CorruptSnapshotError as exc:
         raised = str(exc)
     else:
-        oracle = make_engine(plan, device=device)
+        oracle = make_engine(plan, mesh, device=device)
         for docs in batches[:acked]:
             oracle.ingest(docs)
         # fingerprints FIRST: scored queries bump stats counters

@@ -435,8 +435,8 @@ def check_segment_set(segset, *, layout: Optional[PoolLayout] = None,
     """Validate a ``SegmentSet``-shaped object (``frozen`` list +
     ``_doc_base`` + ``max_segments``): frozen docid ranges tile
     contiguously oldest-first, the active base continues the newest
-    frozen segment, the set stays bounded; each member segment is
-    validated too.  ``fanout`` (the engine's ``CompactionPolicy``
+    frozen segment, the set stays bounded; each member segment (each
+    shard of a sharded one) is validated too.  ``fanout`` (the engine's ``CompactionPolicy``
     fanout) adds the tier-structure check: tiers non-increasing
     oldest-first and no run of ``fanout`` adjacent same-tier segments."""
     rep = Report(check="segment-set")
@@ -462,8 +462,12 @@ def check_segment_set(segset, *, layout: Optional[PoolLayout] = None,
         tiers.append(tier)
         if tier < 0:
             rep.add("tier", f"segment {i}: negative tier {tier}")
-        _merge(rep, check_frozen_segment(fz, layout=layout),
-               f"segment {i}: ")
+        for s, sh in enumerate(fz.members):
+            # shard members hold global-within-segment docids
+            whole = sh is fz
+            _merge(rep, check_frozen_segment(
+                sh, layout=layout, relative_docids=whole),
+                f"segment {i}: " if whole else f"segment {i} shard {s}: ")
     if frozen and int(segset._doc_base) != prev_end:
         rep.add("_doc_base", f"active doc_base {int(segset._doc_base)} "
                 f"!= newest frozen end {prev_end} — ranges must tile")

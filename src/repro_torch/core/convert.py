@@ -4,8 +4,9 @@ The boundary is plain numpy in the reference's dtypes, so neither
 package imports the other: the seven ``PoolState`` leaves (uint32 heap
 and tail, int32 watermark/freq/free_list/free_count, bool overflow) and
 each frozen segment's CSR (``offsets``/``data``/``n_docs``/``doc_base``/
-``tier``).  :func:`load_lifecycle` installs such a state into a port
-``LifecycleEngine`` — which then computes exactly what the reference
+``tier``; per shard for a sharded segment).  :func:`load_lifecycle`
+installs such a state into a port ``LifecycleEngine`` or
+``ShardedLifecycleEngine`` — which then computes exactly what the reference
 engine would — and :func:`dump_lifecycle` reads one back out.
 
 The LM side carries a reference ``init_lm`` parameter tree (nested
@@ -20,8 +21,8 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.index import ActiveSegment
 from repro_torch.core.segments import FrozenSegment
+from repro_torch.core.sharded_index import ShardedFrozenSegment
 from repro_torch.core.slicepool import PoolState
 from repro_torch.paged.kv_cache import PagedKVState
 
@@ -53,11 +54,20 @@ def pool_state_to_numpy(state: PoolState) -> Dict[str, np.ndarray]:
             for f, dt in POOL_DTYPES.items()}
 
 
-def frozen_from_numpy(fz) -> FrozenSegment:
+def frozen_from_numpy(fz):
     """A port ``FrozenSegment`` from anything with the CSR fields (the
-    reference's ``FrozenSegment``, or a mapping of them)."""
+    reference's ``FrozenSegment``, or a mapping of them); a sharded one
+    (with ``shards``, each such a CSR) becomes a port
+    ``ShardedFrozenSegment``."""
     get = (fz.__getitem__ if isinstance(fz, Mapping)
            else lambda f: getattr(fz, f))
+    shards = (fz.get("shards") if isinstance(fz, Mapping)
+              else getattr(fz, "shards", None))
+    if shards is not None:
+        return ShardedFrozenSegment(
+            [frozen_from_numpy(sh) for sh in shards],
+            n_docs=int(get("n_docs")), doc_base=int(get("doc_base")),
+            tier=int(get("tier")))
     return FrozenSegment(offsets=np.asarray(get("offsets"), np.int64),
                          data=np.asarray(get("data"), np.uint32),
                          n_docs=int(get("n_docs")),
@@ -65,24 +75,26 @@ def frozen_from_numpy(fz) -> FrozenSegment:
                          freed_slices=None, tier=int(get("tier")))
 
 
-def frozen_to_numpy(fz: FrozenSegment) -> Dict[str, object]:
+def frozen_to_numpy(fz) -> Dict[str, object]:
+    if isinstance(fz, ShardedFrozenSegment):
+        return {"shards": [frozen_to_numpy(sh) for sh in fz.shards],
+                "n_docs": fz.n_docs, "doc_base": fz.doc_base,
+                "tier": fz.tier}
     return {f: getattr(fz, f) for f in FROZEN_FIELDS}
 
 
 def load_lifecycle(engine, leaves: Mapping[str, np.ndarray],
                    frozen: Sequence, *, next_docid: int, doc_base: int,
                    n_rollovers: int = 0, n_compactions: int = 0) -> None:
-    """Install a reference engine's state into the port ``engine``: the
+    """Install a reference engine's state into the port ``engine``
+    (single-device or sharded, with stacked ``[S, ...]`` leaves): the
     active segment's pool leaves and docid count, the frozen segments
     (oldest first), the docid base and the rollover/compaction
     counters."""
     segs = engine.segments
-    state = pool_state_from_numpy(leaves, engine.device)
-    segs.active = ActiveSegment(segs.layout, segs.vocab_size,
-                                max_docs=segs.docs_per_segment, state=state,
-                                next_docid=int(next_docid),
-                                bulk_ingest=segs.bulk_ingest,
-                                device=str(engine.device))
+    segs.active = segs._new_active(
+        state=pool_state_from_numpy(leaves, engine.device))
+    segs.active.next_docid = int(next_docid)
     segs.frozen = [frozen_from_numpy(fz) for fz in frozen]
     segs._doc_base = int(doc_base)
     segs.n_rollovers = int(n_rollovers)

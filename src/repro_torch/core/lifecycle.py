@@ -21,7 +21,9 @@ Queries route through :mod:`repro_torch.core.qexec` by default
 (``batched=True``); the per-query host loop (``batched=False``) is the
 bit-exactness oracle.  The engine's tensors live on ``device`` ("cuda"
 unless the caller asks for the CPU), and the kernels run where the
-tensors are.
+tensors are.  :class:`LifecycleEngine` is the single-device engine;
+:class:`ShardedLifecycleEngine` runs the same shell over the
+document-sharded index (:mod:`repro_torch.core.sharded_index`).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core import postings as post
 from repro_torch.core import qexec
 from repro_torch.core import query as q
 from repro_torch.core import segments as seg_mod
+from repro_torch.core import sharded_index as shx
 from repro_torch.core import slicepool
 from repro_torch.core.pointers import PoolLayout
 from repro_torch.kernels.segment_intersect import (SCORE_MAX, PackedList,
@@ -48,14 +51,16 @@ from repro_torch.kernels.segment_intersect import (SCORE_MAX, PackedList,
 # Frozen segments, device-queryable
 # ---------------------------------------------------------------------------
 class PackedSegment:
-    """Query-side view of one frozen segment: per term, the GLOBAL
-    ascending docid list as a block-gap-compressed :class:`PackedList`
-    (numpy leaves), packed lazily on first use and cached."""
+    """Query-side view of one frozen segment (single-device or sharded):
+    per term, the GLOBAL ascending docid list as a block-gap-compressed
+    :class:`PackedList` (numpy leaves), packed lazily on first use and
+    cached."""
 
     def __init__(self, seg):
         self.seg = seg
         self.doc_base = int(seg.doc_base)
         self._packed: Dict[int, PackedList] = {}
+        self._post: Dict[int, np.ndarray] = {}
         self._tf: Dict[int, tuple] = {}
         self._scored: Dict[int, ScoredList] = {}
 
@@ -79,12 +84,18 @@ class PackedSegment:
 
     def postings_asc(self, term: int) -> np.ndarray:
         """Ascending packed (segment-relative docid, position) postings
-        — the positional substrate for phrase queries."""
-        return self.seg.postings(int(term))
+        — the positional substrate for phrase queries; cached (a
+        sharded segment merges its shards' lists)."""
+        term = int(term)
+        got = self._post.get(term)
+        if got is None:
+            got = self._post[term] = self.seg.postings(term)
+        return got
 
     def bounds(self, term: int) -> tuple:
-        """O(1) ``(n_postings, first_gid, last_gid)`` GLOBAL summary,
-        without forcing a pack."""
+        """O(1) (O(S) over a sharded segment's shards) ``(n_postings,
+        first_gid, last_gid)`` GLOBAL summary, without forcing a
+        pack."""
         c, f, last = self.seg.docid_bounds(int(term))
         if not c:
             return 0, 0, 0
@@ -246,9 +257,12 @@ class AdmissionController:
                 f"need min_segment_docs >= 0, got {self.min_segment_docs}")
 
 
-class LifecycleEngine:
-    """Single-device streaming engine: ingest -> rollover -> reclaim,
-    with queries spanning the active pool and all frozen segments.
+class _LifecycleBase:
+    """Shared shell: frozen-segment tracking, stats, admission, unified
+    queries.  Subclasses provide ``self.segments`` (a SegmentSet-like
+    with ``ingest``/``frozen``/``active``/``_doc_base``) and the active
+    part: ``_active_batch``, ``_active_topk_batch``,
+    ``_active_scored_batch`` and ``_active_desc``.
 
     ``device`` holds every tensor ("cuda" by default; the CPU tests pass
     "cpu", where each kernel's plain version runs).  The batched frozen
@@ -259,21 +273,17 @@ class LifecycleEngine:
     engine-driven compaction.
     """
 
-    def __init__(self, layout: PoolLayout, vocab_size: int,
-                 docs_per_segment: int, *, max_slices: int, max_len: int,
-                 max_query_len: int = 8, max_segments: int = 12,
-                 use_kernel: bool = True,
-                 bulk_ingest: bool = True,
-                 batched: bool = True,
-                 validate: bool = False,
-                 compaction: Optional[seg_mod.CompactionPolicy] = None,
-                 admission: Optional[AdmissionController] = None,
-                 device="cuda"):
+    def __init__(self, layout: PoolLayout, vocab_size: int, max_slices: int,
+                 max_len: int, max_query_len: int, use_kernel: bool,
+                 batched: bool, validate: bool,
+                 admission: Optional[AdmissionController], device) -> None:
+        """The settings both engines share; the subclass then builds
+        ``self.segments`` and ``self.engine`` on ``self.device``."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                "LifecycleEngine(device='cuda') needs a CUDA device; pass "
-                "device='cpu' to run the plain versions on the CPU")
+                f"{type(self).__name__}(device='cuda') needs a CUDA device; "
+                f"pass device='cpu' to run the plain versions on the CPU")
         self.layout = layout
         self.vocab_size = vocab_size
         self.max_slices = max_slices
@@ -282,15 +292,9 @@ class LifecycleEngine:
         self.use_kernel = use_kernel
         self.batched = batched
         self.validate = validate
-        self.segments = seg_mod.SegmentSet(
-            layout, vocab_size, docs_per_segment, max_segments=max_segments,
-            bulk_ingest=bulk_ingest, compaction=compaction,
-            device=self.device)
-        self.engine = q.make_engine(layout, max_slices, max_len,
-                                    max_query_len, use_kernel=use_kernel)
         self._packed: List[PackedSegment] = []
         self._qstack: Optional[qexec.FrozenStack] = None
-        self._batched_kernel = use_kernel and self.device.type == "cuda"
+        self._batched_kernel = self.use_kernel and self.device.type == "cuda"
         self.admission = admission
         self.stats = LifecycleStats()
 
@@ -782,7 +786,31 @@ class LifecycleEngine:
                                     frozen_only)[0]
         return self._unified("phrase", (t1, t2), limit, frozen_only)
 
-    # -- the active part -------------------------------------------------
+
+class LifecycleEngine(_LifecycleBase):
+    """Single-device streaming engine: ingest -> rollover -> reclaim,
+    with queries spanning the active pool and all frozen segments."""
+
+    def __init__(self, layout: PoolLayout, vocab_size: int,
+                 docs_per_segment: int, *, max_slices: int, max_len: int,
+                 max_query_len: int = 8, max_segments: int = 12,
+                 use_kernel: bool = True,
+                 bulk_ingest: bool = True,
+                 batched: bool = True,
+                 validate: bool = False,
+                 compaction: Optional[seg_mod.CompactionPolicy] = None,
+                 admission: Optional[AdmissionController] = None,
+                 device="cuda"):
+        super().__init__(layout, vocab_size, max_slices, max_len,
+                         max_query_len, use_kernel, batched, validate,
+                         admission, device)
+        self.segments = seg_mod.SegmentSet(
+            layout, vocab_size, docs_per_segment, max_segments=max_segments,
+            bulk_ingest=bulk_ingest, compaction=compaction,
+            device=self.device)
+        self.engine = q.make_engine(layout, max_slices, max_len,
+                                    max_query_len, use_kernel=use_kernel)
+
     def _active_batch(self, kind: str, *args):
         state = self.segments.active.state
         if kind == "phrase":
@@ -825,10 +853,76 @@ class LifecycleEngine:
                 + self.doc_base)
 
 
-class ShardedLifecycleEngine:
-    """The document-sharded engine is a later slice of the port."""
+class ShardedLifecycleEngine(_LifecycleBase):
+    """Document-sharded streaming engine: the same unified query path
+    over :class:`~repro_torch.core.sharded_index.ShardedSegmentSet`
+    (per-shard ingest and reclamation, fan-out active queries,
+    global-docid frozen segments).  ``mesh``
+    (:func:`~repro_torch.core.sharded_index.make_doc_mesh`) fixes the
+    shard count and must lie on ``device``.  Its answers are the
+    single-device engine's, bit for bit."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedLifecycleEngine is the document-sharding slice "
-            "(ROADMAP.md, Queue 1 item 11), not yet ported")
+    def __init__(self, layout: PoolLayout, vocab_size: int,
+                 docs_per_segment: int, mesh, *, max_slices: int,
+                 max_len: int, max_query_len: int = 8,
+                 max_segments: int = 12,
+                 use_kernel: bool = True,
+                 bulk_ingest: bool = True,
+                 batched: bool = True,
+                 validate: bool = False,
+                 compaction: Optional[seg_mod.CompactionPolicy] = None,
+                 admission: Optional[AdmissionController] = None,
+                 device="cuda"):
+        super().__init__(layout, vocab_size, max_slices, max_len,
+                         max_query_len, use_kernel, batched, validate,
+                         admission, device)
+        if torch.device(mesh.device) != self.device:
+            raise ValueError(f"mesh shards live on {mesh.device}, the "
+                             f"engine on {self.device}")
+        self.segments = shx.ShardedSegmentSet(
+            layout, vocab_size, docs_per_segment, mesh,
+            max_segments=max_segments, bulk_ingest=bulk_ingest,
+            compaction=compaction)
+        self.engine = shx.make_sharded_engine(
+            layout, mesh, max_slices, max_len, max_query_len,
+            use_kernel=use_kernel)
+
+    def _active_batch(self, kind: str, *args):
+        """One fan-out over the shards covers the whole query batch; the
+        merged output is segment-relative global docids, what the qexec
+        merge expects."""
+        state = self.segments.active.state
+        if kind == "phrase":
+            t1, t2 = args
+            return self.engine.phrase(state, self._tensor(t1),
+                                      self._tensor(t2))
+        terms, n_terms, tb = args
+        return getattr(self.engine, kind)(
+            state, self._tensor(terms[:, :tb]),
+            self._tensor(n_terms, torch.int32))
+
+    def _active_topk_batch(self, terms, n_terms, k: int, k_pad: int,
+                           tb: int):
+        # no early exit over the sharded active pool: the full batched
+        # conjunction feeds the frozen walk, which still stops early
+        desc, n = self._active_batch("conjunctive", terms, n_terms, tb)
+        return desc, n.clamp(max=k)
+
+    def _active_scored_batch(self, terms, n_terms, tb: int):
+        return self.engine.conjunctive_scored(
+            self.segments.active.state, self._tensor(terms[:, :tb]),
+            self._tensor(n_terms, torch.int32))
+
+    def _active_desc(self, kind: str, terms: Sequence[int]) -> np.ndarray:
+        state = self.segments.active.state
+        if kind == "phrase":
+            desc, n = self.engine.phrase(state, self._tensor([terms[0]]),
+                                         self._tensor([terms[1]]))
+        else:
+            padded = np.zeros((1, self.max_query_len), np.int64)
+            padded[0, : len(terms)] = terms
+            desc, n = getattr(self.engine, kind)(
+                state, self._tensor(padded),
+                self._tensor([len(terms)], torch.int32))
+        return (desc[0].cpu().numpy()[: int(n[0])].astype(np.int64)
+                + self.doc_base)

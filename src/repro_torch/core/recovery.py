@@ -1,5 +1,5 @@
 """Durable index snapshots + journaled crash recovery for the port's
-``LifecycleEngine``.
+``LifecycleEngine`` and ``ShardedLifecycleEngine``.
 
 The same two host-side artifacts and one contract as the reference
 package, byte for byte, so an archive or journal written by either
@@ -9,8 +9,10 @@ package is read by the other:
     ``REPROSNAP`` magic, a CRC32-checked JSON manifest (the engine's
     construction config, counters, tiers, stats and the journal
     watermark ``seq``), then every array leaf with its own CRC32.  The
-    leaves are the seven ``PoolState`` leaves, the history term
-    frequencies and every frozen segment's CSR, written in the
+    leaves are the seven ``PoolState`` leaves (stacked ``[S, ...]`` for
+    a sharded engine), the history term frequencies and every frozen
+    segment's CSR (``frozen/{i}/shard{s}/...`` per shard when sharded),
+    written in the
     reference's dtypes (uint32 heap/tail/data, int32 counters, int64
     offsets) through :mod:`repro_torch.core.convert`.  Writes are atomic
     (tmp file + ``os.replace``).
@@ -35,8 +37,9 @@ Manifest keys that only the reference uses (``interpret``,
 and ignored on read: none of them changes state or answers.  An engine
 restored with ``validate=True`` (from the archive's config or an
 override) runs the structural validators on the restored state before
-it is returned.  Sharded archives wait for the document-sharding slice
-of the port.
+it is returned.  A sharded archive restores only onto a mesh of its own
+shard count: docid residue classes ``d % S`` match for that count
+alone.
 """
 from __future__ import annotations
 
@@ -163,11 +166,22 @@ def read_archive(path: str) -> Tuple[Dict[str, Any],
 # ---------------------------------------------------------------------------
 # Engine serialization
 # ---------------------------------------------------------------------------
+def _engine_kind(engine) -> str:
+    from repro_torch.core import lifecycle as lc
+    if isinstance(engine, lc.ShardedLifecycleEngine):
+        return "sharded"
+    if isinstance(engine, lc.LifecycleEngine):
+        return "single"
+    raise TypeError(f"cannot snapshot {type(engine).__name__}; expected "
+                    f"LifecycleEngine or ShardedLifecycleEngine")
+
+
 def snapshot(engine, path: str, *, seq: int = 0) -> Dict[str, Any]:
     """Serialize the engine's full state to ``path``; returns the meta
     dict written into the manifest.  ``seq`` is the journal watermark:
     the number of ingest batches applied so far (:func:`recover`
     replays records with ``seq >=`` it)."""
+    kind = _engine_kind(engine)
     segs = engine.segments
     policy = segs.compaction
     admission = engine.admission
@@ -201,13 +215,17 @@ def snapshot(engine, path: str, *, seq: int = 0) -> Dict[str, Any]:
         frozen_meta.append({"n_docs": int(fz.n_docs),
                             "doc_base": int(fz.doc_base),
                             "tier": int(fz.tier)})
-        arrays.append((f"frozen/{i}/offsets",
-                       np.asarray(fz.offsets, np.int64)))
-        arrays.append((f"frozen/{i}/data", np.asarray(fz.data, np.uint32)))
+        for s, member in enumerate(fz.members):
+            prefix = (f"frozen/{i}/shard{s}" if kind == "sharded"
+                      else f"frozen/{i}")
+            arrays.append((f"{prefix}/offsets",
+                           np.asarray(member.offsets, np.int64)))
+            arrays.append((f"{prefix}/data",
+                           np.asarray(member.data, np.uint32)))
     meta = {
         "format": FORMAT_VERSION,
-        "kind": "single",
-        "num_shards": 1,
+        "kind": kind,
+        "num_shards": (int(segs.num_shards) if kind == "sharded" else 1),
         "config": cfg,
         "active": {"next_docid": int(segs.active.next_docid)},
         "segments": {"doc_base": int(segs._doc_base),
@@ -232,15 +250,15 @@ def _leaf(arrays: Dict[str, np.ndarray], name: str) -> np.ndarray:
 
 
 def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
-                  *, device, **overrides):
+                  *, device, mesh=None, **overrides):
     """Rebuild a port engine from archive contents (shared by
     :func:`restore` and :func:`recover`)."""
     from repro_torch.core import lifecycle as lc
+    from repro_torch.core import sharded_index as shx
 
-    if meta["kind"] != "single":
-        raise NotImplementedError(
-            f"{meta['kind']!r} archives need the document-sharded engine, "
-            f"a later slice of the port (ROADMAP.md, Queue 1 item 11)")
+    kind = meta["kind"]
+    if kind not in ("single", "sharded"):
+        raise CorruptSnapshotError(f"unknown archive kind {kind!r}")
     cfg = dict(meta["config"])
     for key in _REFERENCE_ONLY:
         cfg.pop(key, None)
@@ -260,9 +278,22 @@ def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
                    if adm_cfg is not None else None),
     )
     kwargs.update(overrides)
-    eng = lc.LifecycleEngine(layout, cfg["vocab_size"],
-                             cfg["docs_per_segment"], device=device,
-                             **kwargs)
+    if kind == "sharded":
+        S = int(meta["num_shards"])
+        if mesh is None:
+            mesh = shx.make_doc_mesh(S, device=device)
+        if mesh.num_shards != S:
+            raise ValueError(
+                f"snapshot was taken on {S} shards but the mesh "
+                f"provides {mesh.num_shards}; docid residue "
+                f"classes d % S only match for the same shard count")
+        eng = lc.ShardedLifecycleEngine(
+            layout, cfg["vocab_size"], cfg["docs_per_segment"], mesh,
+            device=device, **kwargs)
+    else:
+        eng = lc.LifecycleEngine(layout, cfg["vocab_size"],
+                                 cfg["docs_per_segment"], device=device,
+                                 **kwargs)
 
     # -- active pool: every PoolState leaf, checked against the engine's
     init = convert.pool_state_to_numpy(eng.segments.active.state)
@@ -274,11 +305,23 @@ def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
                 f"leaf active/{name}: archive {arr.dtype}{arr.shape} "
                 f"does not match the engine's {ref.dtype}{ref.shape}")
         leaves[name] = arr
-    frozen = [dict(offsets=_leaf(arrays, f"frozen/{i}/offsets"),
-                   data=_leaf(arrays, f"frozen/{i}/data"),
-                   n_docs=fm["n_docs"], doc_base=fm["doc_base"],
-                   tier=fm["tier"])
-              for i, fm in enumerate(meta["frozen"])]
+
+    def csr(pre, n_docs, fm):
+        return dict(offsets=_leaf(arrays, f"{pre}/offsets"),
+                    data=_leaf(arrays, f"{pre}/data"), n_docs=n_docs,
+                    doc_base=fm["doc_base"], tier=fm["tier"])
+
+    frozen = []
+    for i, fm in enumerate(meta["frozen"]):
+        if kind == "sharded":
+            S = int(meta["num_shards"])
+            frozen.append(dict(
+                shards=[csr(f"frozen/{i}/shard{s}", fm["n_docs"] // S, fm)
+                        for s in range(S)],
+                n_docs=fm["n_docs"], doc_base=fm["doc_base"],
+                tier=fm["tier"]))
+        else:
+            frozen.append(csr(f"frozen/{i}", fm["n_docs"], fm))
     segs_meta = meta["segments"]
     # installs the state, the frozen CSRs (freed_slices stays None: the
     # slices were recycled at the original rollover) and the counters,
@@ -300,14 +343,19 @@ def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
     return eng
 
 
-def restore(path: str, *, device="cuda", **overrides):
+def restore(path: str, *, mesh=None, device="cuda", **overrides):
     """Rebuild a port :class:`~repro_torch.core.lifecycle.LifecycleEngine`
-    on ``device`` from a snapshot archive written by either package.
-    ``overrides`` are constructor keyword overrides (e.g.
-    ``use_kernel=False``, ``validate=True``); with ``validate`` the
-    structural validators run on the restored state."""
+    (or, from a sharded archive, a ``ShardedLifecycleEngine``) on
+    ``device`` from a snapshot archive written by either package.
+    ``mesh`` is used only by sharded archives: ``None`` builds
+    ``make_doc_mesh(S, device=device)`` over the saved shard count, and
+    a mesh of another shard count raises ``ValueError``.  ``overrides``
+    are constructor keyword overrides (e.g. ``use_kernel=False``,
+    ``validate=True``); with ``validate`` the structural validators run
+    on the restored state."""
     meta, arrays = read_archive(path)
-    return _build_engine(meta, arrays, device=device, **overrides)
+    return _build_engine(meta, arrays, device=device, mesh=mesh,
+                         **overrides)
 
 
 # ---------------------------------------------------------------------------
@@ -460,17 +508,19 @@ def read_journal(path: str) -> Tuple[int, List[Tuple[int, np.ndarray]]]:
 # Recovery: restore + replay
 # ---------------------------------------------------------------------------
 def recover(snapshot_path: str, journal_path: Optional[str] = None, *,
-            expect_seq: Optional[int] = None, on_replay=None,
+            mesh=None, expect_seq: Optional[int] = None, on_replay=None,
             device="cuda", **overrides):
-    """Restore the snapshot on ``device``, then replay journaled batches
-    through the ordinary ingest path.  Returns the recovered engine.
+    """Restore the snapshot on ``device`` (a sharded one on ``mesh``, as
+    :func:`restore` does), then replay journaled batches through the
+    ordinary ingest path.  Returns the recovered engine.
 
     ``expect_seq`` is the durable watermark (the number of batches
     acknowledged upstream): if snapshot + journal cover fewer,
     :class:`CorruptSnapshotError` is raised.  ``on_replay(seq, docs,
     admitted)`` is called after each replayed batch."""
     meta, arrays = read_archive(snapshot_path)
-    eng = _build_engine(meta, arrays, device=device, **overrides)
+    eng = _build_engine(meta, arrays, device=device, mesh=mesh,
+                        **overrides)
     applied = int(meta["seq"])
     if journal_path is not None and os.path.exists(journal_path):
         _, records = read_journal(journal_path)
@@ -521,7 +571,8 @@ def engine_fingerprint(engine) -> Dict[str, Any]:
     for i, fz in enumerate(segs.frozen):
         fp[f"frozen/{i}"] = (int(fz.doc_base), int(fz.n_docs),
                              int(fz.tier),
-                             ((_crc(fz.offsets), _crc(fz.data)),))
+                             tuple((_crc(m.offsets), _crc(m.data))
+                                   for m in fz.members))
     fp["n_frozen"] = len(segs.frozen)
     fp["stats"] = dataclasses.asdict(engine.stats)
     return fp

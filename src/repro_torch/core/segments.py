@@ -13,8 +13,8 @@ segment fills it is converted to a read-only structure:
     adjacent frozen segments so the frozen count G stays O(log N).
 
 Frozen segments are host-side numpy (uint32 CSR data), like the
-reference's.  The reference's ``ForBlocks``/``compress_segment`` codec
-serves only the sharded engine and is not ported yet (ROADMAP.md).
+reference's; :func:`compress_segment` gap-compresses one with the
+``ForBlocks`` block codec (the sharded engine's ``compress``).
 """
 from __future__ import annotations
 
@@ -44,6 +44,12 @@ class FrozenSegment:
     # compaction tier: 0 straight from rollover; a merge yields
     # max(tier) + 1.
     tier: int = 0
+
+    @property
+    def members(self) -> List["FrozenSegment"]:
+        """The CSR segments this segment is made of: itself (a
+        ``ShardedFrozenSegment`` lists its shards)."""
+        return [self]
 
     def postings(self, term: int) -> np.ndarray:
         return self.data[self.offsets[term]: self.offsets[term + 1]]
@@ -236,6 +242,100 @@ class CompactionPolicy:
                 return i, self.fanout
             i = j
         return None
+
+
+# ---------------------------------------------------------------------------
+# FOR / PForDelta-lite block codec for docid gaps
+# ---------------------------------------------------------------------------
+# No query or ingest path calls the codec: the reference's examples
+# (examples/realtime_search*.py) print its byte count as a frozen
+# segment's compressed size.  It is kept, byte-equal to the reference's,
+# for a compressed-bytes memory metric or an archive codec.
+BLOCK = 128
+
+
+@dataclasses.dataclass
+class ForBlocks:
+    widths: np.ndarray   # uint8[n_blocks] bits per value
+    firsts: np.ndarray   # uint32[n_blocks] first raw value per block
+    payload: np.ndarray  # uint64 packed little-endian bit stream
+    n: int
+
+    @staticmethod
+    def encode(values: np.ndarray) -> "ForBlocks":
+        values = values.astype(np.uint64)
+        n = len(values)
+        n_blocks = max(1, -(-n // BLOCK))
+        widths = np.zeros(n_blocks, np.uint8)
+        firsts = np.zeros(n_blocks, np.uint32)
+        bits: List[Tuple[int, int]] = []  # (value, width) stream
+        for b in range(n_blocks):
+            chunk = values[b * BLOCK:(b + 1) * BLOCK]
+            if chunk.size == 0:
+                continue
+            firsts[b] = chunk[0]
+            gaps = np.diff(chunk.astype(np.int64)).astype(np.uint64)
+            w = int(gaps.max()).bit_length() if gaps.size else 0
+            widths[b] = w
+            bits.extend((int(g), w) for g in gaps)
+        total_bits = sum(w for _, w in bits)
+        payload = np.zeros((total_bits + 63) // 64 + 1, np.uint64)
+        pos = 0
+        for v, w in bits:
+            if w == 0:
+                continue
+            word, off = pos >> 6, pos & 63
+            payload[word] |= np.uint64((v << off) & 0xFFFFFFFFFFFFFFFF)
+            if off + w > 64:
+                payload[word + 1] |= np.uint64(v >> (64 - off))
+            pos += w
+        return ForBlocks(widths, firsts, payload, n)
+
+    def decode(self) -> np.ndarray:
+        out = np.zeros(self.n, np.uint64)
+        pos = 0
+        i = 0
+        for b in range(len(self.widths)):
+            cnt = min(BLOCK, self.n - b * BLOCK)
+            if cnt <= 0:
+                break
+            out[i] = self.firsts[b]
+            w = int(self.widths[b])
+            acc = int(self.firsts[b])
+            for j in range(1, cnt):
+                if w == 0:
+                    g = 0
+                else:
+                    word, off = pos >> 6, pos & 63
+                    v = int(self.payload[word]) >> off
+                    if off + w > 64:
+                        v |= int(self.payload[word + 1]) << (64 - off)
+                    g = v & ((1 << w) - 1)
+                    pos += w
+                acc += g
+                out[i + j] = acc
+            i += cnt
+        return out
+
+    @property
+    def compressed_bytes(self) -> int:
+        return (self.widths.nbytes + self.firsts.nbytes
+                + self.payload.nbytes)
+
+
+def compress_segment(seg: FrozenSegment) -> Tuple[List[Optional[ForBlocks]], int]:
+    """Gap-compress each term's docid stream; returns (codecs, bytes)."""
+    codecs: List[Optional[ForBlocks]] = []
+    total = 0
+    for t in range(len(seg.offsets) - 1):
+        p = seg.postings(t)
+        if p.size == 0:
+            codecs.append(None)
+            continue
+        c = ForBlocks.encode(p.astype(np.uint64))
+        codecs.append(c)
+        total += c.compressed_bytes
+    return codecs, total
 
 
 # ---------------------------------------------------------------------------

@@ -77,26 +77,60 @@ def init_state(layout: PoolLayout, vocab_size: int,
     )
 
 
+def init_sharded_state(layout: PoolLayout, vocab_size: int, n_shards: int,
+                       device="cuda") -> PoolState:
+    """``n_shards`` independent pools stacked on a leading shard axis:
+    one allocation per leaf, shape ``[S, ...]`` (``overflow`` becomes
+    ``bool[S]``).  Row ``s`` of every leaf is a contiguous view that is
+    exactly a single-device state, so the bulk allocator writes a
+    shard's batch in place through ``state.heap[s]`` and friends."""
+    one = init_state(layout, vocab_size, "meta")
+    dev = torch.device(device)
+    return PoolState(*(
+        torch.full((n_shards,) + tuple(x.shape), NULL if f == "tail" else 0,
+                   dtype=x.dtype, device=dev)
+        for f, x in zip(PoolState._fields, one)))
+
+
+def shard_view(state: PoolState, s: int) -> PoolState:
+    """Shard ``s`` of a stacked state, as views (writes land in it)."""
+    return PoolState(*(leaf[s] for leaf in state))
+
+
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
 def memory_slots_used(layout: PoolLayout, state: PoolState) -> int:
     """LIVE allocated slots = paper's empirical memory cost ``C_M*``
-    (slices on the free list are not live)."""
+    (slices on the free list are not live).  Accepts a single state
+    (``watermark[P]``) or a stacked one (``watermark[S, P]``); stacked
+    states sum over shards."""
     live = (_np(state.watermark).astype(np.int64)
             - _np(state.free_count).astype(np.int64))
     return int(np.sum(live * np.asarray(layout.slice_sizes, np.int64)))
 
 
 def memory_high_water_slots(layout: PoolLayout, state: PoolState) -> int:
-    """Heap high-water mark: every slot that was EVER allocated."""
+    """Heap high-water mark: every slot that was EVER allocated (summed
+    over shards for a stacked state)."""
     wm = _np(state.watermark).astype(np.int64)
     return int(np.sum(wm * np.asarray(layout.slice_sizes, np.int64)))
 
 
+def shard_slots_used(layout: PoolLayout, state: PoolState) -> np.ndarray:
+    """Per-shard LIVE allocated slots of a stacked state (int64[S])."""
+    wm = _np(state.watermark).astype(np.int64)
+    if wm.ndim != 2:
+        raise ValueError("shard_slots_used wants a stacked state [S, P]")
+    live = wm - _np(state.free_count).astype(np.int64)
+    return np.sum(live * np.asarray(layout.slice_sizes, np.int64)[None, :],
+                  axis=1)
+
+
 def pool_utilization(layout: PoolLayout, state: PoolState) -> float:
-    """Worst-case live-slice fill fraction across pools: 1.0 means some
+    """Worst-case live-slice fill fraction across pools (and shards, for
+    a stacked ``[S, P]`` state: the worst shard sets it): 1.0 means some
     pool has no allocatable slice left (the next allocation there trips
     the sticky ``overflow``).  One small host sync."""
     live = (_np(state.watermark).astype(np.float64)
@@ -454,10 +488,12 @@ def release_slices(layout: PoolLayout, state: PoolState, freed,
     """Return reclaimed slices to the per-pool free lists (host-side).
 
     ``freed`` is a per-pool sequence of slice-index arrays — exactly what
-    :func:`repro_torch.core.segments.freeze_state` reports.
-    ``reset_terms`` clears ``tail``/``freq`` so the pool is an empty
-    active segment again (heap contents stay: they were frozen into the
-    read-only CSR segment, and recycled slices overwrite them lazily).
+    :func:`repro_torch.core.segments.freeze_state` reports; for a
+    stacked state (leaves ``[S, ...]``) pass one such sequence per
+    shard.  ``reset_terms`` clears ``tail``/``freq`` so the pool is an
+    empty active segment again (heap contents stay: they were frozen
+    into the read-only CSR segment, and recycled slices overwrite them
+    lazily).
     """
     dev = state.heap.device
     wm = _np(state.watermark)
@@ -465,30 +501,41 @@ def release_slices(layout: PoolLayout, state: PoolState, freed,
     fc = _np(state.free_count).copy()
     base = np.asarray(layout.free_base, np.int64)
     caps = np.asarray(layout.slices_per_pool, np.int64)
-    for p, sl in enumerate(freed):
-        sl = np.asarray(sl, np.int32)
-        if sl.size == 0:
-            continue
-        if np.unique(sl).size != sl.size:
-            raise ValueError(
-                f"pool {p}: slice released twice in one call — "
-                f"double release?")
-        held = fl[base[p]: base[p] + fc[p]]
-        if np.intersect1d(sl, held).size:
-            raise ValueError(
-                f"pool {p}: slice already on the free list — "
-                f"double release?")
-        if int(sl.max()) >= int(wm[p]) or int(sl.min()) < 0:
-            raise ValueError(
-                f"pool {p}: slice index outside the allocated range "
-                f"[0, {wm[p]}) — not this pool's slice")
-        n = int(fc[p]) + sl.size
-        if n > caps[p]:
-            raise ValueError(
-                f"pool {p}: releasing {sl.size} slices overflows the "
-                f"free list ({fc[p]} held, capacity {caps[p]})")
-        fl[base[p] + fc[p]: base[p] + n] = sl
-        fc[p] = n
+
+    def _push(fl_row, fc_row, wm_row, per_pool):
+        for p, sl in enumerate(per_pool):
+            sl = np.asarray(sl, np.int32)
+            if sl.size == 0:
+                continue
+            if np.unique(sl).size != sl.size:
+                raise ValueError(
+                    f"pool {p}: slice released twice in one call — "
+                    f"double release?")
+            held = fl_row[base[p]: base[p] + fc_row[p]]
+            if np.intersect1d(sl, held).size:
+                raise ValueError(
+                    f"pool {p}: slice already on the free list — "
+                    f"double release?")
+            if int(sl.max()) >= int(wm_row[p]) or int(sl.min()) < 0:
+                raise ValueError(
+                    f"pool {p}: slice index outside the allocated range "
+                    f"[0, {wm_row[p]}) — not this pool's slice")
+            n = int(fc_row[p]) + sl.size
+            if n > caps[p]:
+                raise ValueError(
+                    f"pool {p}: releasing {sl.size} slices overflows the "
+                    f"free list ({fc_row[p]} held, capacity {caps[p]})")
+            fl_row[base[p] + fc_row[p]: base[p] + n] = sl
+            fc_row[p] = n
+
+    if wm.ndim == 2:
+        if len(freed) != wm.shape[0]:
+            raise ValueError(f"{len(freed)} freed lists for a state of "
+                             f"{wm.shape[0]} shards")
+        for s, per_pool in enumerate(freed):
+            _push(fl[s], fc[s], wm[s], per_pool)
+    else:
+        _push(fl, fc, wm, freed)
     tail, freq = state.tail, state.freq
     if reset_terms:
         tail = torch.full_like(state.tail, NULL)

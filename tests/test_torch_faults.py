@@ -98,15 +98,6 @@ def test_plan_validation_and_inputs():
             pass
 
 
-def test_sharded_plans_name_their_roadmap_item(tmp_path):
-    plan = TF.FaultPlan(kind="crash_after_batch")
-    for call in (lambda: TF.make_engine(plan, mesh=object(), device="cpu"),
-                 lambda: TF.run_plan(plan, str(tmp_path), mesh=object(),
-                                     device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            call()
-
-
 def test_run_plan_catches_contract_violation(tmp_path, monkeypatch):
     monkeypatch.setattr(TF, "query_results", lambda eng: id(eng))
     with pytest.raises(AssertionError, match="differently"):

@@ -22,7 +22,8 @@ from repro_torch.core import pointers as tp
 from repro_torch.core import slicepool as tsp
 from repro_torch.core import recovery as trec
 from repro_torch.core.index import ActiveSegment
-from repro_torch.core.lifecycle import LifecycleEngine
+from repro_torch.core import sharded_index as tsh
+from repro_torch.core.lifecycle import LifecycleEngine, ShardedLifecycleEngine
 from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
 from repro_torch.kernels import embedding_bag as teb
@@ -66,7 +67,7 @@ def test_guard_sees_every_port_module():
                  "time_embedding_bag.py", "time_segment_intersect.py",
                  "other_archs.py", "base.py", "invariants.py",
                  "sanitize.py", "faults.py", "policies.py", "history.py",
-                 "tokenizer.py"):
+                 "tokenizer.py", "sharded_index.py", "collectives.py"):
         assert must in names
 
 
@@ -81,7 +82,9 @@ def test_entry_points_default_to_cuda():
                tT.init_decode_cache, tserve.serve, tconv.lm_params_from_numpy,
                tconv.kv_state_from_numpy, tS.make_recsys_forward,
                tS.make_recsys_retrieval_step, tS.init_params_for,
-               tR.field_offsets, tconv.recsys_params_from_numpy):
+               tR.field_offsets, tconv.recsys_params_from_numpy,
+               ShardedLifecycleEngine.__init__, tsh.make_doc_mesh,
+               tsp.init_sharded_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
@@ -98,12 +101,19 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     layout = tp.PoolLayout(z=(1, 4), slices_per_pool=(8, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         LifecycleEngine(layout, 4, 10, max_slices=4, max_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedLifecycleEngine(layout, 4, 12, tsh.make_doc_mesh(4),
+                               max_slices=4, max_len=8)
     snap = tmp_path / "e.snap"
     trec.snapshot(LifecycleEngine(layout, 4, 10, max_slices=4, max_len=8,
                                   device="cpu"), str(snap))
+    trec.snapshot(ShardedLifecycleEngine(
+        layout, 4, 12, tsh.make_doc_mesh(4, device="cpu"), max_slices=4,
+        max_len=8, device="cpu"), str(tmp_path / "s.snap"))
     for fn in (trec.restore, trec.recover):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            fn(str(snap))
+        for path in (snap, tmp_path / "s.snap"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(str(path))
     if not torch.backends.cuda.is_built():
         with pytest.raises((AssertionError, RuntimeError)):
             ActiveSegment(layout, 4)

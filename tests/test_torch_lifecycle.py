@@ -145,9 +145,10 @@ def test_single_query_api_and_dispatch_match(stream, streamed):
 
 def test_scored_and_sharded_not_ported(stream, streamed, monkeypatch):
     """Scored retrieval is ported (it answers like the reference); the
-    sharded engine still raises, naming its ROADMAP item.  A
-    ``validate=True`` engine validates at every rollover and compaction
-    and ends in the reference's state."""
+    sharded engine builds on the CPU and answers like the single-device
+    one (``tests/test_torch_sharded_lifecycle.py`` holds it against the
+    reference).  A ``validate=True`` engine validates at every rollover
+    and compaction and ends in the reference's state."""
     j, t = streamed
     q = stream["queries"][0]
     for got, want in ((t.scored_topk(q, 3), j.scored_topk(q, 3)),
@@ -155,8 +156,14 @@ def test_scored_and_sharded_not_ported(stream, streamed, monkeypatch):
                        j.dispatch("scored", [q], k=3).wait()[0])):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tl.ShardedLifecycleEngine()
+    from repro_torch.core.sharded_index import make_doc_mesh
+    sh = tl.ShardedLifecycleEngine(
+        tp.PoolLayout(z=stream["z"], slices_per_pool=stream["spp"]), VOCAB,
+        SEG, make_doc_mesh(4, device="cpu"), max_slices=stream["max_slices"],
+        max_len=stream["max_len"], max_query_len=4, device="cpu")
+    sh.ingest(stream["docs"][:BATCH])
+    np.testing.assert_array_equal(sh.conjunctive(q), j.conjunctive(q)[
+        j.conjunctive(q) < BATCH])
     _, v = make_pair(stream, validate=True)
     calls = []
     real = tl.LifecycleEngine.validate_invariants

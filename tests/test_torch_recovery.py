@@ -238,9 +238,12 @@ def test_damage_raises_corrupt(stream, fed, tmp_path, damage):
 
 
 def test_unsupported_archives_name_their_roadmap_item(stream, tmp_path):
-    """Sharded archives still name their ROADMAP item; ``validate=True``
-    restores validate the state (a tampered leaf whose CRCs were
-    recomputed restores silently without it and raises with it)."""
+    """A single-device archive relabelled ``kind="sharded"`` raises
+    ``CorruptSnapshotError``: its pool leaves are not stacked, and with
+    them stacked it still lacks the shard leaves of its frozen segments.
+    ``validate=True`` restores validate the state (a tampered leaf whose
+    CRCs were recomputed restores silently without it and raises with
+    it)."""
     from repro_torch.analysis import faults, invariants
     path = str(tmp_path / "x.snap")
     trec.snapshot(feed(port_engine(stream), stream["batches"][:3]), path)
@@ -252,9 +255,20 @@ def test_unsupported_archives_name_their_roadmap_item(stream, tmp_path):
         trec.restore(path, device="cpu", validate=True)
     meta = trec.snapshot(port_engine(stream), path)
     _, arrays = trec.read_archive(path)
-    trec.write_archive(path, dict(meta, kind="sharded", num_shards=4),
+    trec.write_archive(path, dict(meta, kind="sharded", num_shards=2),
                        sorted(arrays.items()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(trec.CorruptSnapshotError, match="active/heap"):
+        trec.restore(path, device="cpu")
+    rolled = feed(port_engine(stream), stream["batches"][:6])
+    assert rolled.stats.rollovers == 1
+    meta1 = trec.snapshot(rolled, path)
+    _, arrays1 = trec.read_archive(path)
+    stacked = {k: (v[None] if k.startswith("active/") else v)
+               for k, v in arrays1.items()}
+    trec.write_archive(path, dict(meta1, kind="sharded", num_shards=1),
+                       sorted(stacked.items()))
+    with pytest.raises(trec.CorruptSnapshotError,
+                       match="frozen/0/shard0/offsets"):
         trec.restore(path, device="cpu")
     trec.write_archive(path, meta, [(k, v) for k, v in arrays.items()
                                     if k != "active/freq"])
