@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (the streaming index, single-device and
-document-sharded, the paged-KV decoder server and recsys serving) on one
-GPU.
+document-sharded, the paged-KV decoder server, recsys serving and the
+LMs' forward, prefill and decode) on one GPU.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,7 @@ Phases, in order (any failure raises and exits non-zero):
      L2-flushed, beside the byte bound and gather + sdpa, at B = 32 and
      B = 1 at full length and on the final serving state; the paged decode
      against the dense decode in fp32 (4 sequences in lockstep, every
-     greedy token equal); then 40 requests on 32 slots (max_len 2048) in
+     greedy token equal); then 33 requests on 32 slots (max_len 2048) in
      bf16, with the kernel held against its plain version again on the
      final serving state.
 
@@ -95,10 +95,11 @@ Phases, in order (any failure raises and exits non-zero):
      shard d % 4, every shard's ``[S, ...]`` state stacked on the card,
      Earlybird's 2**23-tweet segment as 2**21 local docs a shard, pools
      sized from each shard's own substream), one rollover, 2**20 more
-     tweets, phase 3's query batches of every kind held against phase
-     3's brute force; ``bulk_append`` launched 4 times a batch,
-     ``intersect_mask`` (the shards' batched conjunctions) and the two
-     batched frozen-segment kernels launched; the sharded route's own
+     tweets, phase 3's first 32 queries of every kind (four batches)
+     held against phase 3's brute force; ``bulk_append`` launched 4
+     times a batch, ``intersect_mask`` (the shards' batched
+     conjunctions) and the two batched frozen-segment kernels
+     launched; the sharded route's own
      ``intersect_mask`` calls replayed bit-equal to the plain version
      and timed beside their bound and ``searchsorted`` + ``gather``;
      ingest docs/s, rollover s, ms per query batch, traced batches,
@@ -112,9 +113,30 @@ Phases, in order (any failure raises and exits non-zero):
      ``check_engine``).  Phase 8 runs last of the index phases, after
      phase 3's engine is gone.
 
+  9. the LMs at full width, one on the card at a time, random weights
+     from seed 0 (no kernel of the repo is on this path: attention and
+     the MoE dispatch are plain torch): Gemma3-12B as published (48
+     layers, 40 local with a 1024-token window + 8 global, bf16):
+     ``lm_prefill`` at B = 1 x 32,768 (cache shapes, finite logits),
+     ``lm_forward`` and ``lm_loss`` at B = 1 x 4,096 (the prefill's last
+     logits against the forward's last row; the loss against a float64
+     cross-entropy of the forward's logits), a traced forward; past the
+     window at one group's depth (5 local + 1 global) in fp32: 2 x 1024
+     + 64 tokens decoded one at a time against the forward at every
+     position, and with the int8 cache against the exact decode;
+     Qwen2-MoE-A2.7B as published (24 layers, 60 experts top 4 + 4
+     shared): prefill at B = 1 x 32,768, prefill against forward at
+     4,096 with each layer's drop fraction, one layer's grouped
+     dispatch against the token path in fp32, decode against forward
+     over 128 tokens in fp32; Grok-1-314B at its widths, 2 of 64 layers:
+     prefill against forward at B = 1 x 8,192; TinyLlama-1.1B: the
+     prefill's bf16 cache of 256 tokens against the dense decode's,
+     built token by token.
+
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
-and 8 (with a brute force of its own) (short rehearsals);
+and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9
+(short rehearsals);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
@@ -173,6 +195,7 @@ from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.launch import time_segment_intersect as tsg  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
@@ -1017,19 +1040,19 @@ FULL_BUCKET = 32              # ServeConfig().max_batch: one full bucket
 # of the stretch's times and latencies (the profiler slows it); the
 # forced full stretches are not traced, since the profiler takes 5-30 s
 # to read one such step.  The full stretches take 4 steps a forced rung
-# and, to keep the script within its time limit, 8 under the gauge; the
-# light forced stretches take the batches left over (37 each), and of
-# them only the exhaustive one is traced.
+# and, to keep the script within its time limit, 4 under the gauge; the
+# light forced stretches take 37 batches each, and of them only the
+# exhaustive one is traced; the light gauge stretch takes the rest (88).
 SERVE_STRETCHES = (("exhaustive", 0, 37, (0, 9, 18, 27), 10, True),
                    ("early_exit", 1, 37, (0, 9, 18, 27), 10, False),
                    ("reduced_k", 2, 37, (0, 9, 18, 27), 10, False),
                    ("frozen_only", 3, 37, (0, 9, 18, 27), 10, False),
-                   ("gauge", None, 84, (0, 21, 42, 63, 82), 10, True),
+                   ("gauge", None, 88, (0, 21, 42, 63, 82), 10, True),
                    ("exhaustive_full", 0, 4, range(4), FULL_BUCKET, False),
                    ("early_exit_full", 1, 4, range(4), FULL_BUCKET, False),
                    ("reduced_k_full", 2, 4, range(4), FULL_BUCKET, False),
                    ("frozen_only_full", 3, 4, range(4), FULL_BUCKET, False),
-                   ("gauge_full", None, 8, range(8), FULL_BUCKET, True))
+                   ("gauge_full", None, 4, range(4), FULL_BUCKET, True))
 
 
 def stream_answer(bf: BruteForce, kind: str, terms, n_docs: int):
@@ -1803,7 +1826,7 @@ def traced_decode_step(server, params, state) -> dict:
     return dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"], idle=p["idle"])
 
 
-def phase_paged(seed: int, requests: int = 40, max_seqs: int = 32,
+def phase_paged(seed: int, requests: int = 33, max_seqs: int = 32,
                 max_len: int = 2048):
     torch.manual_seed(seed)        # the kernel checks' random inputs
     cfg = registry.get("tinyllama-1.1b").config
@@ -2046,8 +2069,12 @@ def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
     """Phase 8 (a) at full width and (b) at phase 4's depth; logs and
     returns 8(a)'s summary."""
     t0 = time.perf_counter()
-    full = phase_sharded(docs, vocab, seg_docs, extra, q_rows, 64,
-                         oracle=oracle, single=single)
+    if oracle is not None:
+        queries, pairs, want = oracle
+        n = SHARDED_QUERIES
+        oracle = (queries[:n], pairs[:n], {k: v[:n] for k, v in want.items()})
+    full = phase_sharded(docs, vocab, seg_docs, extra, q_rows,
+                         SHARDED_QUERIES, oracle=oracle, single=single)
     log(f"phase 8a (sharded, full width) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2063,6 +2090,8 @@ def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
 # phase 8: the document-sharded index, four shards stacked on the card
 # ---------------------------------------------------------------------------
 SHARDS = 4                    # S: docid d lives on shard d % S
+SHARDED_QUERIES = 32          # phase 3's first 32 queries of each kind: a
+                              # depth cut that keeps the script in its limit
 
 
 def shard_layout(docs: np.ndarray, vocab: int, seg_docs: int,
@@ -2173,8 +2202,8 @@ def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
                   oracle=None, single=None) -> dict:
     """8(a): phase 3's stream through a four-shard
     ``ShardedLifecycleEngine`` at Earlybird's 2**23-tweet segment (2**21
-    local docs a shard), one rollover, 2**20 more tweets, then phase 3's
-    query batches of every kind held against phase 3's brute force
+    local docs a shard), one rollover, 2**20 more tweets, then the query
+    batches of every kind held against phase 3's brute force
     (``oracle``: its queries, pairs and answers; made here when None).
     ``single``: phase 3's slots, for the cost of partitioning."""
     t0 = time.perf_counter()
@@ -2271,8 +2300,8 @@ def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
                              f"{counts['intersect_mask']} launches counted")
     for kind, (got, _, _) in res.items():
         check_answers(f"sharded {kind}", got, want[kind])
-    log(f"sharded brute force: {n_queries} queries of each kind agree "
-        f"with phase 3's brute force")
+    log(f"sharded brute force: {len(queries)} queries of each kind agree "
+        f"with the brute force")
     prof = profile_paths(eng, docs[total: total + BATCH], queries, pairs,
                          q_rows)
     del eng, st
@@ -2898,6 +2927,391 @@ def save_bag_calls(path: str, seed: int) -> None:
         f"({size / 2**20:.1f} MiB)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LMs at full width (forward, loss, prefill, decode)
+# ---------------------------------------------------------------------------
+# q_chunk per cell: the reference's overrides (src/repro/configs/
+# registry.py:150-159; prefill_32k 256 for Gemma3 and Qwen2-MoE, 128 for
+# Grok-1; train_4k 512)
+PREFILL_LEN = 32768           # prefill_32k's length, at B = 1 (a cut)
+TRAIN_LEN = 4096              # train_4k's length, at B = 1
+GROK_LEN = 8192               # Grok-1's prefill and forward, B = 1
+MOE_DECODE_LEN = 128          # Qwen2-MoE's fp32 decode vs forward
+TINY_LEN = 256                # TinyLlama's prefill cache vs decode's
+BF16_REL = 2 ** -6            # bf16 logits of two paths: max |d| over
+                              # max |logit| (2 ulps at the largest logit)
+FP32_ERR = 1e-3               # fp32 (TF32 off) decode vs forward logits
+LOSS_ERR = 1e-3               # lm_loss vs a float64 cross-entropy
+INT8_ERR = 0.15               # int8 vs exact decode, tests/test_kv_quant.py
+MOE_ERR = 1e-5                # grouped vs token dispatch, fp32, the
+                              # reference's tests/test_moe_grouped.py
+# Qwen2-MoE's decode vs forward wants no drop in the forward: capacity
+# factor n_experts / top_k makes C >= T, so no pair can drop (8.0, the
+# reference's reduced_config value, dropped 1.0% and 2.9% of the pairs
+# of layers 16 and 17 at full width: random weights route the tokens of
+# deep layers alike)
+KV_ERR = (0.25, 0.01)         # TinyLlama bf16 cache (and last logits: max
+                              # only), prefill vs token by token: max and
+                              # mean |d| (a few bf16 ulps at values up to 8,
+                              # over 22 layers)
+
+
+def _lm_free() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _lm_tokens(cfg, B: int, S: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+
+
+def _n_params(tree) -> int:
+    return sum(_n_params(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+@contextlib.contextmanager
+def moe_metrics():
+    """Each ``moe_ffn`` call's metrics (one a MoE layer, in order)."""
+    got, real = [], lm_moe.moe_ffn
+
+    def spy(x, p, cfg):
+        y, m = real(x, p, cfg)
+        got.append(m)
+        return y, m
+    lm_moe.moe_ffn = spy
+    try:
+        yield got
+    finally:
+        lm_moe.moe_ffn = real
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _prefill_check(name, cfg, params, S: int, q_chunk: int, seed: int,
+                   shapes: dict) -> dict:
+    """``lm_prefill`` at B = 1 x S: time, tokens/s, cache shapes, finite
+    logits; the cache is dropped before returning."""
+    toks = _lm_tokens(cfg, 1, S, seed)
+    step = rsteps.make_lm_prefill_step(cfg, q_chunk=q_chunk)
+    (logits, cache), sec = _timed(lambda: step(params, toks))
+    for f, want in shapes.items():
+        got = tuple(getattr(cache, f).shape)
+        if got != want:
+            raise AssertionError(f"{name} prefill: cache {f} {got} != {want}")
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{name} prefill: logits {tuple(logits.shape)} "
+                             f"not finite")
+    out = dict(prefill_s=sec, prefill_tok_per_s=S / sec,
+               cache={f: list(v) for f, v in shapes.items()})
+    log(f"{name} prefill B=1 x {S} (q_chunk {q_chunk}): {sec:.2f} s, "
+        f"{S / sec:.0f} tokens/s; cache {out['cache']}; logits finite")
+    del cache, logits
+    return out
+
+
+def _forward_vs_prefill(name, cfg, params, S: int, q_chunk: int,
+                        seed: int) -> tuple:
+    """``lm_forward`` and ``lm_prefill`` at B = 1 x S: the prefill's last
+    logits against the forward's last row.  Returns (forward logits,
+    tokens, max |d|, forward s)."""
+    toks = _lm_tokens(cfg, 1, S, seed)
+    fwd, sec = _timed(lambda: lm.lm_forward(params, toks, cfg, q_chunk))
+    last, _ = lm.lm_prefill(params, toks, cfg, q_chunk)
+    want = fwd[:, -1].float()
+    err, scale = float((last - want).abs().max()), float(want.abs().max())
+    if not torch.isfinite(last).all() or err > BF16_REL * scale:
+        raise AssertionError(f"{name} prefill vs forward at S={S}: max |d| "
+                             f"{err} over max |logit| {scale} (limit "
+                             f"{BF16_REL} of it)")
+    log(f"{name} forward B=1 x {S}: {sec:.2f} s ({S / sec:.0f} tokens/s); "
+        f"prefill's last logits vs the forward's last row max |d| {err:.4g}")
+    return fwd, toks, err, sec
+
+
+def _decode_vs_forward(cfg, params, toks, fwd, quant_cfg=None) -> dict:
+    """Decode ``toks`` one at a time and hold every step's logits against
+    the forward's row (fp32: max |d| <= ``FP32_ERR``, every argmax
+    equal); with ``quant_cfg`` an int8-cache decode runs in lockstep and
+    is held against the exact one as tests/test_kv_quant.py holds it."""
+    B, S = toks.shape
+    dec = rsteps.make_lm_decode_step(cfg)
+    cache = lm.init_decode_cache(cfg, B, S, device="cuda")
+    want = fwd.argmax(-1)
+    err = torch.zeros((), device="cuda")
+    miss = torch.zeros((), dtype=torch.int64, device="cuda")
+    if quant_cfg is not None:
+        decq = rsteps.make_lm_decode_step(quant_cfg)
+        cq = lm.init_decode_cache(quant_cfg, B, S, device="cuda")
+        qerr = torch.zeros((), device="cuda")
+        qagree = torch.zeros((), dtype=torch.int64, device="cuda")
+    for t in range(S):
+        nxt, logits, cache = dec(params, cache, toks[:, t:t + 1], t)
+        err = torch.maximum(err, (logits - fwd[:, t]).abs().max())
+        miss += (nxt[:, 0] != want[:, t]).sum()
+        if quant_cfg is not None:
+            nq, lq, cq = decq(params, cq, toks[:, t:t + 1], t)
+            qerr = torch.maximum(qerr, (lq - logits).abs().max())
+            qagree += (nq == nxt).sum()
+    out = dict(steps=S, max_abs_err=float(err), argmax_misses=int(miss))
+    if out["max_abs_err"] > FP32_ERR or out["argmax_misses"] or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"decode vs forward: {out} (limit {FP32_ERR}, "
+                             f"every argmax equal)")
+    if quant_cfg is not None:
+        bytes_q = cq.k.nbytes + cq.k_sc.nbytes
+        out.update(int8_max_abs_err=float(qerr),
+                   int8_argmax_agree=int(qagree) / (B * S),
+                   int8_last_argmax_equal=bool(torch.equal(nq, nxt)),
+                   int8_bytes_ratio=bytes_q / cache.k.nbytes)
+        if out["int8_max_abs_err"] >= INT8_ERR or \
+                not out["int8_last_argmax_equal"] or \
+                out["int8_bytes_ratio"] >= 0.6:
+            raise AssertionError(f"int8 decode vs exact: {out} (limits "
+                                 f"{INT8_ERR}, last argmax equal, bytes "
+                                 f"< 0.6x)")
+        if cq.k_loc is not None:
+            out["int8_local_bytes_ratio"] = (
+                (cq.k_loc.nbytes + cq.k_loc_sc.nbytes) / cache.k_loc.nbytes)
+    return out
+
+
+def lm_gemma(seed: int) -> dict:
+    cfg = registry.get("gemma3-12b").config
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    n_loc, n_glob = lm._n_local_global(cfg)
+    out = dict(params=_n_params(params), layers=[n_loc, n_glob])
+    log(f"gemma3-12b: {out['params']} parameters ({cfg.param_dtype}, "
+        f"random from seed {seed}), {n_loc} local (window "
+        f"{cfg.sliding_window}) + {n_glob} "
+        f"global layers")
+    D = (1, cfg.n_kv_heads, cfg.d_head)
+    out.update(_prefill_check(
+        "gemma3-12b", cfg, params, PREFILL_LEN, 256, seed,
+        {"k": (n_glob, 1, PREFILL_LEN) + D[1:],
+         "k_loc": (n_loc, 1, cfg.sliding_window) + D[1:]}))
+    fwd, toks, out["prefill_vs_forward"], out["forward_s"] = \
+        _forward_vs_prefill("gemma3-12b", cfg, params, TRAIN_LEN, 512, seed)
+    loss = float(lm.lm_loss(params, toks, cfg, 512))
+    ce = float(torch.nn.functional.cross_entropy(
+        fwd[0, :-1].double(), toks[0, 1:]))
+    out["loss"], out["loss_err"] = loss, abs(loss - ce)
+    if not abs(loss - ce) <= LOSS_ERR:
+        raise AssertionError(f"gemma3-12b lm_loss {loss} vs float64 "
+                             f"cross-entropy {ce} (limit {LOSS_ERR})")
+    del fwd
+    torch.cuda.empty_cache()
+    p = device_profile(lambda: lm.lm_forward(params, toks, cfg, 512),
+                       warm=True)
+    out["traced_forward"] = dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"],
+                                 idle=p["idle"], events=p["events"],
+                                 top=p["top"])
+    log(f"gemma3-12b lm_loss at S={TRAIN_LEN}: {loss:.6f}, float64 "
+        f"cross-entropy of the forward's logits off by {out['loss_err']:.3g}"
+        f"; traced forward: wall {p['wall_ms']:.1f} ms, device busy "
+        f"{p['busy_ms']:.1f} ms ({100 * p['idle']:.0f}% idle), "
+        f"{p['events']} device events; top: " + top_ops(p, 2))
+    del params, p
+    _lm_free()
+    # past the window: one group's depth (5 local + 1 global) in fp32
+    cfg6 = dataclasses.replace(cfg, n_layers=cfg.local_global_ratio + 1,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+    params = lm.init_lm(cfg6, seed=seed, device="cuda")
+    S = 2 * cfg.sliding_window + 64
+    toks = _lm_tokens(cfg6, 1, S, seed + 1)
+    fwd = lm.lm_forward(params, toks, cfg6, q_chunk=S // 2)
+    (dec, sec) = _timed(lambda: _decode_vs_forward(
+        cfg6, params, toks, fwd,
+        dataclasses.replace(cfg6, kv_quant=True)))
+    out["past_window"] = dict(dec, seconds=sec, layers=cfg6.n_layers)
+    log(f"gemma3-12b past the window (fp32, TF32 off, {cfg6.n_layers} "
+        f"layers, {S} tokens, ring of {cfg.sliding_window}): decode vs "
+        f"forward max |d| {dec['max_abs_err']:.3g} (limit {FP32_ERR}), "
+        f"every argmax equal; int8 cache max |d| vs exact "
+        f"{dec['int8_max_abs_err']:.4g} (limit {INT8_ERR}), argmax agrees "
+        f"at {100 * dec['int8_argmax_agree']:.2f}% of steps, last equal, "
+        f"global cache bytes {dec['int8_bytes_ratio']:.3f}x and local "
+        f"{dec['int8_local_bytes_ratio']:.3f}x the exact fp32 cache's; "
+        f"{sec:.1f} s for 2 x {S} steps")
+    del params, fwd
+    return out
+
+
+def _to_fp32_in_place(tree) -> None:
+    """Widen every leaf to fp32 one at a time (a stacked bf16 leaf is
+    freed before the next is widened)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_fp32_in_place(v)
+        else:
+            tree[k] = v.float()
+            del v
+            torch.cuda.empty_cache()
+
+
+def lm_qwen(seed: int) -> dict:
+    cfg = registry.get("qwen2-moe-a2.7b").config
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    out = dict(params=_n_params(params))
+    log(f"qwen2-moe-a2.7b: {out['params']} parameters ({cfg.param_dtype}, "
+        f"random from seed {seed}), {cfg.n_layers} layers of "
+        f"{cfg.n_experts} routed "
+        f"experts top {cfg.moe_top_k} + {cfg.n_shared_experts} shared; "
+        f"router {params['layers']['moe']['router'].dtype}")
+    with moe_metrics() as got:
+        out.update(_prefill_check(
+            "qwen2-moe-a2.7b", cfg, params, PREFILL_LEN, 256, seed,
+            {"k": (cfg.n_layers, 1, PREFILL_LEN, cfg.n_kv_heads,
+                   cfg.d_head)}))
+    out["prefill_drop_fraction"] = [float(m["drop_fraction"]) for m in got]
+    with moe_metrics() as got:
+        fwd, toks, out["prefill_vs_forward"], out["forward_s"] = \
+            _forward_vs_prefill("qwen2-moe-a2.7b", cfg, params, TRAIN_LEN,
+                                512, seed)
+    drops = [float(m["drop_fraction"]) for m in got[:cfg.n_layers]]
+    out["forward_drop_fraction"] = drops
+    log(f"qwen2-moe-a2.7b drop_fraction by layer (capacity factor "
+        f"{cfg.capacity_factor}): prefill S={PREFILL_LEN} "
+        f"{[round(d, 4) for d in out['prefill_drop_fraction']]}; forward "
+        f"S={TRAIN_LEN} {[round(d, 4) for d in drops]}")
+    del fwd
+    # one layer's grouped dispatch against the token path, group by group,
+    # in fp32 at full width (the reference's tests/test_moe_grouped.py form)
+    layer = lm.layer_params(params["layers"], 0, torch.float32)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(4, 1024, cfg.d_model, generator=gen, device="cuda")
+    y, m = lm_moe.moe_ffn(x, layer, cfg)
+    err, scale = 0.0, float(y.abs().max())
+    for g in range(4):
+        want = lm_moe._moe_ffn_tokens(x[g], layer, cfg)[0]
+        err = max(err, float((want - y[g]).abs().max()))
+        if not torch.allclose(y[g], want, rtol=MOE_ERR, atol=MOE_ERR):
+            raise AssertionError(f"qwen2-moe-a2.7b grouped vs token "
+                                 f"dispatch, group {g}: max |d| {err} "
+                                 f"(rtol = atol = {MOE_ERR})")
+    out["grouped_vs_tokens"] = err
+    log(f"qwen2-moe-a2.7b layer 0 grouped dispatch [4, 1024, "
+        f"{cfg.d_model}] vs the token path group by group (fp32): max |d| "
+        f"{err:.3g} (max |y| {scale:.3g}); drop_fraction "
+        f"{float(m['drop_fraction']):.4f}")
+    del layer, x, y
+    # decode vs forward in fp32, at a capacity no pair can exceed
+    _to_fp32_in_place(params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32",
+                                capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    toks = _lm_tokens(cfg32, 1, MOE_DECODE_LEN, seed + 1)
+    with moe_metrics() as got:
+        fwd = lm.lm_forward(params, toks, cfg32, q_chunk=MOE_DECODE_LEN)
+    drops = [float(m["drop_fraction"]) for m in got]
+    if any(drops):
+        raise AssertionError(f"qwen2-moe-a2.7b fp32 forward dropped tokens "
+                             f"at capacity factor {cfg32.capacity_factor}: "
+                             f"{drops}")
+    dec, sec = _timed(lambda: _decode_vs_forward(cfg32, params, toks, fwd))
+    out["decode_vs_forward"] = dict(dec, seconds=sec)
+    log(f"qwen2-moe-a2.7b decode vs forward (fp32, TF32 off, capacity "
+        f"factor {cfg32.capacity_factor}, nothing dropped, {cfg.n_layers} "
+        f"layers): "
+        f"{MOE_DECODE_LEN} steps, "
+        f"max |d| {dec['max_abs_err']:.3g} (limit {FP32_ERR}), every argmax "
+        f"equal, {sec:.1f} s")
+    del params, fwd
+    return out
+
+
+def lm_grok(seed: int) -> dict:
+    full = registry.get("grok-1-314b").config
+    cfg = dataclasses.replace(full, n_layers=2)   # depth cut: one card
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    out = dict(params=_n_params(params), full_params=full.param_count,
+               layers=[cfg.n_layers, full.n_layers])
+    log(f"grok-1-314b at its widths, {cfg.n_layers} of {full.n_layers} "
+        f"layers: {out['params']} parameters ({cfg.param_dtype}, random "
+        f"from seed {seed}; the full model {full.param_count})")
+    S = GROK_LEN
+    with moe_metrics() as got:
+        out.update(_prefill_check(
+            "grok-1-314b", cfg, params, S, 128, seed,
+            {"k": (cfg.n_layers, 1, S, cfg.n_kv_heads, cfg.d_head)}))
+        fwd, _, out["prefill_vs_forward"], out["forward_s"] = \
+            _forward_vs_prefill("grok-1-314b", cfg, params, S, 128, seed)
+    out["drop_fraction"] = [round(float(m["drop_fraction"]), 4)
+                            for m in got]
+    log(f"grok-1-314b drop_fraction by layer (prefill, forward, prefill): "
+        f"{out['drop_fraction']}")
+    del params, fwd
+    return out
+
+
+def lm_tinyllama(seed: int) -> dict:
+    """The prefill's bf16 cache of 256 tokens against the dense decode's
+    (the paged path's oracle) built token by token."""
+    cfg = registry.get("tinyllama-1.1b").config
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    S = TINY_LEN
+    toks = _lm_tokens(cfg, 2, S, seed)
+    logits, pre = lm.lm_prefill(params, toks, cfg, q_chunk=S)
+    cache = lm.init_decode_cache(cfg, 2, S, device="cuda")
+    for t in range(S):
+        last, cache = lm.lm_decode_step(params, cache, toks[:, t:t + 1], t,
+                                        cfg)
+    out = {}
+    for f in ("k", "v"):
+        d = (getattr(pre, f).float() - getattr(cache, f).float()).abs()
+        out[f] = (float(d.max()), float(d.mean()))
+        if out[f][0] > KV_ERR[0] or out[f][1] > KV_ERR[1]:
+            raise AssertionError(f"tinyllama-1.1b prefill vs decode cache "
+                                 f"{f}: max / mean |d| {out[f]} (limits "
+                                 f"{KV_ERR})")
+    out["logits"] = float((logits - last).abs().max())
+    if out["logits"] > KV_ERR[0]:
+        raise AssertionError(f"tinyllama-1.1b prefill vs decode last "
+                             f"logits: max |d| {out['logits']} (limit "
+                             f"{KV_ERR[0]})")
+    log(f"tinyllama-1.1b: bf16 cache of 2 x {S} tokens, lm_prefill vs the "
+        f"dense decode token by token: k max / mean |d| {out['k'][0]:.4g} / "
+        f"{out['k'][1]:.3g}, v {out['v'][0]:.4g} / {out['v'][1]:.3g} "
+        f"(limits {KV_ERR}); last logits max |d| {out['logits']:.4g} (limit "
+        f"{KV_ERR[0]})")
+    del params, pre, cache
+    return out
+
+
+def phase_lm(seed: int) -> dict:
+    """Phase 9: one arch on the card at a time, everything freed before
+    each; returns each arch's seconds, peak memory and checks."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, fn in (("gemma3-12b", lm_gemma), ("qwen2-moe-a2.7b", lm_qwen),
+                     ("grok-1-314b", lm_grok),
+                     ("tinyllama-1.1b", lm_tinyllama)):
+        _lm_free()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = fn(seed)
+        torch.cuda.synchronize()
+        r.update(seconds=time.perf_counter() - t0,
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 held_before=held)
+        out[name] = r
+        log(f"{name}: {r['seconds']:.1f} s, peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB ({held} bytes held before)")
+    _lm_free()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segment-log2", type=int, default=23,
@@ -2910,6 +3324,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="run only the build, the main path (phase 3) and "
                          "search serving (phase 7)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run only the build and the LMs at full width "
+                         "(phase 9)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the build and the sharded index (phase "
                          "8, with its own brute force)")
@@ -2948,9 +3365,9 @@ def main(argv=None) -> int:
         docs, _, vocab, seg_docs, extra, _ = index_stream(args.segment_log2)
         phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
         del docs
-    elif not (args.paged_only or args.recsys_only):
+    elif not (args.paged_only or args.recsys_only or args.lm_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
-    only = args.serve_only or args.sharded_only
+    only = args.serve_only or args.sharded_only or args.lm_only
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -2968,6 +3385,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
+    if not (args.paged_only or args.recsys_only or args.serve_only or
+            args.sharded_only or saving):
+        t0 = time.perf_counter()
+        lms = phase_lm(seed=0)
+        log("lm phase: " + json.dumps(lms))
+        log(f"lm phase {time.perf_counter() - t0:.1f} s")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     print(card, flush=True)

@@ -130,16 +130,17 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _map_tree(fn, node):
-    """``fn`` on every array leaf of a tree of dicts and lists."""
+def _map_tree(fn, node, key=None):
+    """``fn(leaf, key)`` on every array leaf of a tree of dicts and lists
+    (``key``: the name of the leaf's innermost dict entry)."""
     if isinstance(node, Mapping):
-        return {k: _map_tree(fn, v) for k, v in node.items()}
+        return {k: _map_tree(fn, v, k) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_map_tree(fn, v) for v in node]
-    return fn(node)
+        return [_map_tree(fn, v, key) for v in node]
+    return fn(node, key)
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+def _leaf_to_numpy(t: torch.Tensor, key=None) -> np.ndarray:
     """numpy has no bfloat16, so a bf16 leaf comes back as float32
     (exactly)."""
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
@@ -150,10 +151,12 @@ def params_from_numpy(tree, cfg, device="cuda") -> dict:
     (``init_lm``'s dicts with stacked ``[L, ...]`` layers, or a recsys
     ``init_*``'s dicts holding lists of layer dicts such as
     ``bot``/``top``, ``cross``, ``cin``): the same names and nesting, in
-    the config's ``param_dtype``; bf16 leaves travel as their bit
-    pattern."""
+    the config's ``param_dtype`` (an MoE ``router`` in fp32); bf16 leaves
+    travel as their bit pattern."""
     dt = getattr(torch, cfg.param_dtype)
-    return _map_tree(lambda a: _tensor(a, device, dt), tree)
+    # the MoE router stays fp32, as the reference's init makes it
+    return _map_tree(lambda a, key: _tensor(
+        a, device, torch.float32 if key == "router" else dt), tree)
 
 
 def params_to_numpy(params) -> dict:

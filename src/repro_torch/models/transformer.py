@@ -1,25 +1,32 @@
-"""Decoder-only transformer LM, the dense part: initialisation and the
-decode-with-KV-cache step (the reference's ``models/transformer.py``).
+"""Decoder-only transformer LM: dense and MoE layers, local/global
+(Gemma3-style) attention, the full-sequence forward, the loss, prefill
+and decode with a KV cache (the reference's ``models/transformer.py``).
 
-Parameters are a plain dict with the reference's tree names; the layer
-stack ``params["layers"]`` holds ``[L, ...]`` tensors, one leading slice
-per layer.  The dense decode (:func:`lm_decode_step`) is the oracle the
-paged decode of :mod:`repro_torch.paged.serve_model` is held against.
+Parameters are a plain dict with the reference's tree names; each layer
+stack (``layers``, or ``local_layers`` and ``global_layers`` when
+``local_global_ratio`` is set) holds ``[L, ...]`` tensors, one leading
+slice per layer, and the layers run in a Python loop where the
+reference scans.  Attention over a full sequence is q-chunked with fp32
+logits (``chunked_attention``); a local layer's decode cache is a ring
+buffer of ``sliding_window`` slots; with ``kv_quant`` the cache is int8
+with a per-(token, head) fp32 scale.  MoE layers dispatch through
+:mod:`repro_torch.models.moe`.
 
-Not ported yet (ROADMAP.md Queue 1 item 12): MoE layers, local/global
-(sliding-window) stacks, the int8 KV cache, and the train/prefill
-forward passes.  A config asking for one raises ``NotImplementedError``.
-There is one device, so the reference's sharding constraints are gone;
-the dense cache is updated in place.
+There is one device, so the reference's sharding constraints and specs
+are gone (ROADMAP.md Queue 1 item 12.6); ``remat`` matters only to
+training, which is not ported (item 12.3).  The decode cache is updated
+in place.  The dense decode is the oracle the paged decode of
+:mod:`repro_torch.paged.serve_model` is held against.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -27,37 +34,70 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def require_dense(cfg: LMConfig) -> None:
-    """Raise for the config features the port does not run yet."""
-    for flag in ("moe", "local_global_ratio", "kv_quant"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{cfg.name}: {flag} is not ported yet (ROADMAP.md Queue 1 "
-                f"item 12); the port runs dense, all-global, unquantised "
-                f"decoders")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _stack_init(cfg: LMConfig, gen: torch.Generator, n: int) -> dict:
-    """``n`` layers' parameters, stacked ``[n, ...]`` (drawn at once where
-    the reference vmaps its per-layer ``_init_layer``)."""
+def _init_layer(cfg: LMConfig, gen: torch.Generator) -> dict:
     dt = dtype_of(cfg.param_dtype)
     d, dh = cfg.d_model, cfg.d_head
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-
-    def w(*shape):
-        return L.dense_init(gen, (n,) + shape, dt)
-    return {
-        "attn_norm": torch.zeros((n, d), dtype=dt, device=gen.device),
-        "mlp_norm": torch.zeros((n, d), dtype=dt, device=gen.device),
-        "wq": w(d, hq * dh),
-        "wk": w(d, hkv * dh),
-        "wv": w(d, hkv * dh),
-        "wo": w(hq * dh, d),
-        "mlp": {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)},
+    p = {
+        "attn_norm": torch.zeros((d,), dtype=dt, device=gen.device),
+        "mlp_norm": torch.zeros((d,), dtype=dt, device=gen.device),
+        "wq": L.dense_init(gen, (d, hq * dh), dt),
+        "wk": L.dense_init(gen, (d, hkv * dh), dt),
+        "wv": L.dense_init(gen, (d, hkv * dh), dt),
+        "wo": L.dense_init(gen, (hq * dh, d), dt),
     }
+    if cfg.moe:
+        p["moe"] = M.init_moe_layer(cfg, gen)
+    else:
+        p["mlp"] = {"w_gate": L.dense_init(gen, (d, f), dt),
+                    "w_up": L.dense_init(gen, (d, f), dt),
+                    "w_down": L.dense_init(gen, (f, d), dt)}
+    return p
+
+
+def _stack_init(cfg: LMConfig, gen: torch.Generator, n: int) -> dict:
+    """``n`` layers' parameters stacked ``[n, ...]``, drawn one layer at a
+    time (the reference vmaps ``_init_layer``), so the fp32 draw is one
+    layer's, never the stack's: Qwen2-MoE's expert stack would be 16.6 GB
+    in fp32."""
+    first = _init_layer(cfg, gen)
+
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        out = torch.empty((n,) + tuple(node.shape), dtype=node.dtype,
+                          device=node.device)
+        out[0] = node
+        return out
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    stack = alloc(first)
+    del first
+    for i in range(1, n):
+        put(stack, _init_layer(cfg, gen), i)
+    return stack
+
+
+def _n_local_global(cfg: LMConfig) -> Tuple[int, int]:
+    """(local layers, global layers): ``local_global_ratio`` r tiles the
+    depth as groups of r local layers and one global."""
+    r = cfg.local_global_ratio
+    if r <= 0:
+        return 0, cfg.n_layers
+    if cfg.n_layers % (r + 1):
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not tile "
+                         f"(local^{r}, global)")
+    n_groups = cfg.n_layers // (r + 1)
+    return n_groups * r, n_groups
 
 
 def init_lm(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
@@ -65,24 +105,96 @@ def init_lm(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     reference's ``init_lm`` (its ``jax.random`` stream cannot be
     reproduced; :func:`repro_torch.core.convert.lm_params_from_numpy`
     carries a reference tree across instead)."""
-    require_dense(cfg)
-    dt = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return _init_tree(cfg, gen)
+
+
+def _init_tree(cfg: LMConfig, gen: torch.Generator) -> dict:
+    dt = dtype_of(cfg.param_dtype)
+    n_loc, n_glob = _n_local_global(cfg)
     params = {
         "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=1.0),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
+                                  device=gen.device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dt)
-    params["layers"] = _stack_init(cfg, gen, cfg.n_layers)
+    if n_loc:
+        params["local_layers"] = _stack_init(cfg, gen, n_loc)
+        params["global_layers"] = _stack_init(cfg, gen, n_glob)
+    else:
+        params["layers"] = _stack_init(cfg, gen, cfg.n_layers)
     return params
 
 
 def layer_params(stack: dict, i: int, dtype: torch.dtype) -> dict:
-    """Layer ``i`` of a stacked tree, cast to ``dtype``."""
+    """Layer ``i`` of a stacked tree, every leaf cast to ``dtype`` (the
+    MoE router too, as the reference's per-layer cast does)."""
     return {k: layer_params(v, i, dtype) if isinstance(v, dict)
             else v[i].to(dtype) for k, v in stack.items()}
+
+
+def _schedule(cfg: LMConfig):
+    """The layers in order as (stack name, index in it, is_local)."""
+    n_loc, n_glob = _n_local_global(cfg)
+    if not n_loc:
+        return [("layers", i, False) for i in range(cfg.n_layers)]
+    r = cfg.local_global_ratio
+    out = []
+    for g in range(n_glob):
+        out += [("local_layers", g * r + j, True) for j in range(r)]
+        out.append(("global_layers", g, False))
+    return out
+
+
+def _head(params, cfg: LMConfig, x):
+    x = L.rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (q-chunked, window as a value)
+# ---------------------------------------------------------------------------
+def chunked_attention(q, k, v, *, window: int, q_chunk: int,
+                      q_offset: int = 0):
+    """Causal GQA attention, one q chunk at a time.
+
+    q: [B, S, Hq, D]; k, v: [B, T, Hkv, D]; ``window`` <= 0 means full.
+    Query i (absolute position ``q_offset + i``) attends to key j when
+    ``j <= pos`` and ``j > pos - window``.  Each chunk's logits cover the
+    whole T (local layers too) in fp32 with -1e30 where masked; the
+    probabilities are cast to ``v``'s dtype before the value product."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    q_chunk = min(q_chunk, S)
+    if S % q_chunk:
+        raise ValueError(f"sequence {S} is not a multiple of q_chunk "
+                         f"{q_chunk}")
+    span = window if window > 0 else T + S
+    kt = k.permute(0, 2, 3, 1).contiguous()          # [B, Hkv, D, T]
+    vt = v.permute(0, 2, 1, 3).contiguous()          # [B, Hkv, T, D]
+    k_pos = torch.arange(T, device=q.device)
+    out = torch.empty_like(q)
+    for c in range(S // q_chunk):
+        s0 = c * q_chunk
+        # [B, qc, Hkv, G, D] -> [B, Hkv, G * qc, D]
+        q_c = q[:, s0:s0 + q_chunk].reshape(B, q_chunk, Hkv, G, D)
+        q_c = q_c.permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * q_chunk, D)
+        logits = (q_c @ kt) * scale                   # [B, Hkv, G*qc, T]
+        logits = logits.float().view(B, Hkv, G, q_chunk, T)
+        q_pos = q_offset + s0 + torch.arange(q_chunk, device=q.device)
+        m = (k_pos[None, :] <= q_pos[:, None]) & \
+            (k_pos[None, :] > q_pos[:, None] - span)
+        logits.masked_fill_(~m, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        o = probs.view(B, Hkv, G * q_chunk, T) @ vt   # [B, Hkv, G*qc, D]
+        out[:, s0:s0 + q_chunk] = o.view(B, Hkv, G, q_chunk, D).permute(
+            0, 3, 1, 2, 4).reshape(B, q_chunk, Hq, D)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -99,70 +211,224 @@ def _project_qkv(p, x, cfg: LMConfig, positions):
     return q, k, v
 
 
+def _ffn(p, h, cfg: LMConfig):
+    if cfg.moe:
+        ff, _ = M.moe_ffn(h, p["moe"], cfg)   # grouped dispatch: [B, S, d]
+        return ff
+    return L.swiglu(h, **p["mlp"])
+
+
+def block_forward(p, x, cfg: LMConfig, *, window: int, positions,
+                  q_chunk: int = 512, return_kv: bool = False,
+                  kv_keep: int = 0):
+    """One transformer block over a full sequence (forward / prefill).
+
+    With ``return_kv`` the block also returns its (k, v), the prefill
+    path; ``kv_keep`` > 0 keeps only the trailing ``kv_keep`` positions
+    (a local layer's window)."""
+    h = L.rms_norm(x, p["attn_norm"])
+    q, k, v = _project_qkv(p, h, cfg, positions)
+    attn = chunked_attention(q, k, v, window=window, q_chunk=q_chunk)
+    x = x + (attn.reshape(*x.shape[:2], -1) @ p["wo"])
+    h = L.rms_norm(x, p["mlp_norm"])
+    x = x + _ffn(p, h, cfg)
+    if not return_kv:
+        return x
+    if kv_keep:
+        k, v = k[:, -kv_keep:], v[:, -kv_keep:]
+    return x, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+def _embed(params, tokens, cfg: LMConfig):
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = tokens.shape
+    x = params["embed"].to(cdt)[tokens.long()]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions, cdt
+
+
+def lm_forward(params, tokens, cfg: LMConfig, q_chunk: int = 512):
+    """Logits [B, S, vocab] in the compute dtype.  tokens: int [B, S]."""
+    x, positions, cdt = _embed(params, tokens, cfg)
+    win = cfg.sliding_window or 0
+    for stack, i, local in _schedule(cfg):
+        p = layer_params(params[stack], i, cdt)
+        x = block_forward(p, x, cfg, window=win if local else 0,
+                          positions=positions, q_chunk=q_chunk)
+    return _head(params, cfg, x)
+
+
+def lm_loss(params, tokens, cfg: LMConfig, q_chunk: int = 512):
+    """Next-token cross-entropy (fp32 log-softmax)."""
+    logits = lm_forward(params, tokens, cfg, q_chunk=q_chunk)
+    logits = logits[:, :-1].float()
+    labels = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_prefill(params, tokens, cfg: LMConfig, q_chunk: int = 512):
+    """Prefill: the full forward that also fills a per-layer KV cache.
+
+    Returns (last-position logits fp32 [B, V], DecodeCache with S
+    entries a global layer; local layers keep the trailing
+    ``W = min(sliding_window, S)``)."""
+    x, positions, cdt = _embed(params, tokens, cfg)
+    B, S = tokens.shape
+    n_loc, n_glob = _n_local_global(cfg)
+    shape = (B, S, cfg.n_kv_heads, cfg.d_head)
+    kg = x.new_empty((n_glob if n_loc else cfg.n_layers,) + shape)
+    vg = torch.empty_like(kg)
+    kl = vl = None
+    W = 0
+    if n_loc:
+        W = min(cfg.sliding_window, S)
+        kl = x.new_empty((n_loc, B, W) + shape[2:])
+        vl = torch.empty_like(kl)
+    for stack, i, local in _schedule(cfg):
+        p = layer_params(params[stack], i, cdt)
+        x, (k, v) = block_forward(
+            p, x, cfg, window=cfg.sliding_window if local else 0,
+            positions=positions, q_chunk=q_chunk, return_kv=True,
+            kv_keep=W if local else 0)
+        kc, vc = (kl, vl) if local else (kg, vg)
+        kc[i], vc[i] = k, v
+        del k, v
+    logits = _head(params, cfg, x[:, -1]).float()
+    return logits, DecodeCache(k=kg, v=vg, k_loc=kl, v_loc=vl)
+
+
 # ---------------------------------------------------------------------------
 # Decode with KV cache
 # ---------------------------------------------------------------------------
 class DecodeCache(NamedTuple):
-    k: torch.Tensor          # [L, B, T, Hkv, D]
+    k: torch.Tensor          # [L, B, T, Hkv, D]  (global layers)
     v: torch.Tensor
+    k_loc: Optional[torch.Tensor] = None   # local-layer ring buffers
+    v_loc: Optional[torch.Tensor] = None
+    # int8 cache (cfg.kv_quant): per-(token, kv-head) fp32 scales
+    k_sc: Optional[torch.Tensor] = None       # [L, B, T, Hkv]
+    v_sc: Optional[torch.Tensor] = None
+    k_loc_sc: Optional[torch.Tensor] = None
+    v_loc_sc: Optional[torch.Tensor] = None
 
 
 def init_decode_cache(cfg: LMConfig, batch: int, max_len: int,
                       device="cuda") -> DecodeCache:
-    require_dense(cfg)
-    dt = dtype_of(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return DecodeCache(k=torch.zeros(shape, dtype=dt, device=device),
-                       v=torch.zeros(shape, dtype=dt, device=device))
+    """Zeros: ``max_len`` slots a global layer, ``min(sliding_window,
+    max_len)`` ring slots a local layer; int8 with fp32 scales under
+    ``kv_quant``."""
+    dt = torch.int8 if cfg.kv_quant else dtype_of(cfg.compute_dtype)
+    n_loc, n_glob = _n_local_global(cfg)
+    dh, hkv = cfg.d_head, cfg.n_kv_heads
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    shape_g = (n_glob if n_loc else cfg.n_layers, batch, max_len, hkv, dh)
+    f = {"k": zeros(shape_g, dt), "v": zeros(shape_g, dt)}
+    if cfg.kv_quant:
+        f["k_sc"] = zeros(shape_g[:-1], torch.float32)
+        f["v_sc"] = zeros(shape_g[:-1], torch.float32)
+    if n_loc:
+        shape_l = (n_loc, batch, min(cfg.sliding_window, max_len), hkv, dh)
+        f["k_loc"], f["v_loc"] = zeros(shape_l, dt), zeros(shape_l, dt)
+        if cfg.kv_quant:
+            f["k_loc_sc"] = zeros(shape_l[:-1], torch.float32)
+            f["v_loc_sc"] = zeros(shape_l[:-1], torch.float32)
+    return DecodeCache(**f)
 
 
-def _decode_attn(q, k_cache, v_cache, pos):
-    """q: [B, 1, Hq, D]; cache: [B, T, Hkv, D]; pos: int (the position
-    being decoded).  Softmax in fp32; the probabilities are cast to the
-    cache's dtype before the value product, as in the reference."""
+def _decode_attn(q, k_cache, v_cache, pos: int, *, ring: bool,
+                 window: int = 0, k_sc=None, v_sc=None):
+    """q: [B, 1, Hq, D]; cache: [B, T, Hkv, D]; pos: the position being
+    decoded.  Softmax in fp32.  An int8 cache's scales fold into the two
+    dots as in the reference: the logits times ``k_sc`` after the q.k
+    dot, the probabilities times ``v_sc`` before the value dot (both in
+    fp32); unquantised, the probabilities are cast to the cache's dtype
+    first.  A ring cache's slot j holds position ``pos - ((pos - j) mod
+    T)``, valid when that is >= 0."""
     B, _, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_cache) * (D ** -0.5)
+    cdt = qg.dtype if k_sc is None else torch.float32
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.to(cdt),
+                          k_cache.to(cdt)) * (D ** -0.5)
     logits = logits.float()
-    valid = torch.arange(T, device=q.device) <= pos
+    if k_sc is not None:
+        logits = logits * k_sc.permute(0, 2, 1)[:, :, None, None, :]
+    slot = torch.arange(T, device=q.device)
+    if ring:
+        valid = pos - torch.remainder(pos - slot, T) >= 0
+    else:
+        valid = slot <= pos
+        if window:
+            valid &= slot > pos - window
     logits = torch.where(valid, logits, torch.tensor(-1e30,
                                                      device=q.device))
-    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
+    probs = torch.softmax(logits, dim=-1)
+    if v_sc is not None:
+        probs = probs * v_sc.permute(0, 2, 1)[:, :, None, None, :]
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache.float())
+    else:
+        out = torch.einsum("bkgst,btkd->bskgd", probs.to(v_cache.dtype),
+                           v_cache)
     return out.reshape(B, 1, Hq, D)
 
 
-def _decode_block(p, x, kv, pos: int, cfg: LMConfig):
-    """One layer of one decode step; writes this token's k/v into the
-    layer's cache views ``kv`` in place."""
-    k_cache, v_cache = kv
+def _quant_kv(x):
+    """[B, 1, Hkv, D] -> (int8 values, [B, 1, Hkv] fp32 scale); rounds
+    half to even, as ``jnp.round`` does."""
+    s = torch.amax(torch.abs(x.float()), dim=-1) / 127.0
+    s = torch.clamp(s, min=1e-8)
+    q = torch.clamp(torch.round(x.float() / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _decode_block(p, x, kv, pos: int, cfg: LMConfig, *, ring: bool):
+    """One layer of one decode step; writes this token's k/v (and its
+    scales) into the layer's cache views ``kv`` in place: a ring at
+    ``pos % T``, elsewhere at ``pos`` clamped to the last slot (as
+    ``dynamic_update_slice`` clamps)."""
+    k_cache, v_cache, k_sc, v_sc = kv
     B = x.shape[0]
     h = L.rms_norm(x, p["attn_norm"])
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, h, cfg, positions)
-    write = min(pos, k_cache.shape[1] - 1)   # dynamic_update_slice clamps
+    T = k_cache.shape[1]
+    write = pos % T if ring else min(pos, T - 1)
+    if cfg.kv_quant:
+        k, ks = _quant_kv(k)
+        v, vs = _quant_kv(v)
+        k_sc[:, write] = ks[:, 0]
+        v_sc[:, write] = vs[:, 0]
     k_cache[:, write] = k[:, 0]
     v_cache[:, write] = v[:, 0]
-    attn = _decode_attn(q, k_cache, v_cache, pos)
+    attn = _decode_attn(q, k_cache, v_cache, pos, ring=ring, k_sc=k_sc,
+                        v_sc=v_sc)
     x = x + (attn.reshape(B, 1, -1) @ p["wo"])
     h = L.rms_norm(x, p["mlp_norm"])
-    return x + L.swiglu(h, **p["mlp"])
+    return x + _ffn(p, h, cfg)
 
 
 def lm_decode_step(params, cache: DecodeCache, token, pos: int,
                    cfg: LMConfig):
     """One decode step.  token: int[B, 1]; pos: int (current length).
-    Returns (logits fp32 [B, vocab], cache) — the cache is updated in
+    Returns (logits fp32 [B, vocab], cache); the cache is updated in
     place and returned for the reference's calling convention."""
-    require_dense(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     pos = int(pos)
-    x = params["embed"].to(cdt)[token]
-    for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i, cdt)
-        x = _decode_block(p, x, (cache.k[i], cache.v[i]), pos, cfg)
-    x = L.rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x[:, 0] @ head.to(cdt)).float()
+    x = params["embed"].to(cdt)[token.long()]
+    for stack, i, local in _schedule(cfg):
+        p = layer_params(params[stack], i, cdt)
+        names = ("k_loc", "v_loc", "k_loc_sc", "v_loc_sc") if local else \
+            ("k", "v", "k_sc", "v_sc")
+        kv = tuple(None if getattr(cache, n) is None else getattr(cache, n)[i]
+                   for n in names)
+        x = _decode_block(p, x, kv, pos, cfg, ring=local)
+    logits = _head(params, cfg, x[:, 0]).float()
     return logits, cache

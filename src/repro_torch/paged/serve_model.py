@@ -10,8 +10,10 @@ Step protocol (staged writes):
      (``write_layer_kv``) and attends over the page table with the
      ``paged_attention`` kernel (its plain version on the CPU).
 
-Runs dense, all-global, unquantised LMConfigs (GQA supported); the rest
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 12).
+Runs dense, all-global LMConfigs (GQA supported), as the reference's
+demo server does: ``make_server`` refuses MoE and local/global configs.
+The heaps hold the compute dtype whatever ``kv_quant`` says (the
+reference's paged server ignores it too).
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ class PagedServer(NamedTuple):
 
 def make_server(cfg: LMConfig, layout, max_seqs: int, max_len: int,
                 device="cuda") -> PagedServer:
-    T.require_dense(cfg)
+    if cfg.moe or cfg.local_global_ratio:
+        raise ValueError(f"{cfg.name}: the paged server runs dense, "
+                         f"all-global LMs (no MoE, no local/global stacks)")
     dev = torch.device(device)
     kv_cfg = P.PagedKVConfig(layout=layout, n_layers=cfg.n_layers,
                              n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,

@@ -1,6 +1,6 @@
 """Step factories per architecture family (the reference's
-``train/steps.py``), serving part: the recsys forward and retrieval
-steps, and parameter init by family.
+``train/steps.py``), serving part: the LM prefill and decode steps, the
+recsys forward and retrieval steps, and parameter init by family.
 
 Each factory closes over the config and the device and returns a plain
 function of (params, batch); PyTorch runs it eagerly.  The train steps
@@ -14,13 +14,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import LMConfig, RecsysConfig
 from repro_torch.kernels import ops
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 
 _TRAINING = ("training is not ported yet (ROADMAP.md Queue 1 item 12); "
-             "the port serves recsys models and decodes LMs")
+             "the port serves recsys models and LMs")
 
 
 def make_lm_train_step(*args, **kwargs):
@@ -33,6 +33,28 @@ def make_gnn_train_step(*args, **kwargs):
 
 def make_recsys_train_step(*args, **kwargs):
     raise NotImplementedError(f"make_recsys_train_step: {_TRAINING}")
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+def make_lm_prefill_step(cfg: LMConfig, q_chunk: int = 512) -> Callable:
+    """``prefill_step(params, tokens [B, S]) -> (logits fp32 [B, V],
+    DecodeCache)``."""
+    def prefill_step(params, tokens):
+        return T.lm_prefill(params, tokens, cfg, q_chunk=q_chunk)
+    return prefill_step
+
+
+def make_lm_decode_step(cfg: LMConfig) -> Callable:
+    """``decode_step(params, cache, token [B, 1], pos) -> (next token
+    int32 [B, 1] (the argmax), logits fp32 [B, V], cache)``; the cache
+    is updated in place."""
+    def decode_step(params, cache: T.DecodeCache, token, pos):
+        logits, cache = T.lm_decode_step(params, cache, token, pos, cfg)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return next_tok, logits, cache
+    return decode_step
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro_torch.core import sharded_index as tsh
 from repro_torch.core.lifecycle import LifecycleEngine, ShardedLifecycleEngine
 from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
+from repro_torch.data import lm_data as tD
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels.segment_intersect import decode_packed
 from repro_torch.launch import serve as tserve
@@ -67,7 +68,10 @@ def test_guard_sees_every_port_module():
                  "time_embedding_bag.py", "time_segment_intersect.py",
                  "other_archs.py", "base.py", "invariants.py",
                  "sanitize.py", "faults.py", "policies.py", "history.py",
-                 "tokenizer.py", "sharded_index.py", "collectives.py"):
+                 "tokenizer.py", "sharded_index.py", "collectives.py",
+                 "moe.py", "lm_data.py", "tinyllama_1b.py", "gemma3_12b.py",
+                 "deepseek_coder_33b.py", "qwen2_moe_a2_7b.py",
+                 "grok_1_314b.py"):
         assert must in names
 
 
@@ -84,7 +88,7 @@ def test_entry_points_default_to_cuda():
                tS.make_recsys_retrieval_step, tS.init_params_for,
                tR.field_offsets, tconv.recsys_params_from_numpy,
                ShardedLifecycleEngine.__init__, tsh.make_doc_mesh,
-               tsp.init_sharded_state):
+               tsp.init_sharded_state, tD.make_batch_fn, tD.batches):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
@@ -145,6 +149,87 @@ def test_recsys_entry_points_never_fall_back_to_the_cpu():
             call(cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         treg.get("schnet")
+
+
+def test_lm_entry_points_never_fall_back_to_the_cpu():
+    """Asked for the card (the default) without CUDA, the LM entry points
+    raise for every registry LM (dense, local/global, MoE); the prefill
+    and decode steps run where the parameters are; the LM train step
+    still names its ROADMAP item."""
+    if not torch.backends.cuda.is_built():
+        for arch in ("tinyllama-1.1b", "gemma3-12b", "qwen2-moe-a2.7b"):
+            cfg = treg.reduced_config(arch)
+            for call in (lambda: tT.init_lm(cfg),
+                         lambda: tT.init_decode_cache(cfg, 1, 8),
+                         lambda: tS.init_params_for(treg.get(arch), cfg),
+                         lambda: tD.make_batch_fn(tD.LMDataConfig(
+                             vocab=8, batch=1, seq_len=4))):
+                with pytest.raises((AssertionError, RuntimeError)):
+                    call()
+    for fn in (tS.make_lm_prefill_step, tS.make_lm_decode_step):
+        assert "device" not in inspect.signature(fn).parameters
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tS.make_lm_train_step(treg.reduced_config("gemma3-12b"))
+
+
+@pytest.mark.cuda
+def test_lm_paths_on_the_card_match_the_cpu():
+    """``chip_smoke.py`` phase 9's checks at the reduced configs: each
+    registry LM's forward, loss, prefill and decode (a ring past the
+    window for Gemma3) on the card against the same weights on the CPU,
+    fp32 with TF32 off (2e-4, the reference's LM tolerance); the int8
+    cache's decode on the card against its exact decode as
+    tests/test_kv_quant.py checks it (max |d| < 0.15, the last argmax
+    equal); one MoE layer's grouped dispatch against its token path
+    group by group (1e-5, the reference's MoE tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.models import moe as tM
+    tol = dict(rtol=2e-4, atol=2e-4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("tinyllama-1.1b", "gemma3-12b", "deepseek-coder-33b",
+                 "qwen2-moe-a2.7b", "grok-1-314b"):
+        cfg = treg.reduced_config(arch)
+        cfgq = dataclasses.replace(cfg, kv_quant=True)
+        cpu = tT.init_lm(cfg, seed=0, device="cpu")
+        dev = tconv._map_tree(lambda a, key: a.to("cuda"), cpu)
+        toks = torch.randint(0, cfg.vocab, (2, 24),
+                             generator=torch.Generator().manual_seed(1))
+        for fn in (tT.lm_forward, tT.lm_loss):
+            torch.testing.assert_close(
+                fn(dev, toks.cuda(), cfg, q_chunk=8).cpu(),
+                fn(cpu, toks, cfg, q_chunk=8), **tol)
+        (lc, cc), (lg, cg) = (tT.lm_prefill(p, t, cfg, q_chunk=8)
+                              for p, t in ((cpu, toks), (dev, toks.cuda())))
+        torch.testing.assert_close(lg.cpu(), lc, **tol)
+        for a, b in zip(cg, cc):
+            if b is not None:
+                torch.testing.assert_close(a.cpu(), b, **tol)
+        kc = tT.init_decode_cache(cfg, 2, 24, device="cpu")
+        kg = tT.init_decode_cache(cfg, 2, 24, device="cuda")
+        kq = tT.init_decode_cache(cfgq, 2, 24, device="cuda")
+        qerr = 0.0
+        for i in range(24):
+            oc, kc = tT.lm_decode_step(cpu, kc, toks[:, i:i + 1], i, cfg)
+            og, kg = tT.lm_decode_step(dev, kg, toks[:, i:i + 1].cuda(), i,
+                                       cfg)
+            oq, kq = tT.lm_decode_step(dev, kq, toks[:, i:i + 1].cuda(), i,
+                                       cfgq)
+            torch.testing.assert_close(og.cpu(), oc, **tol)
+            qerr = max(qerr, float((oq - og).abs().max()))
+        assert qerr < 0.15, (arch, qerr)
+        assert torch.equal(oq.argmax(-1), og.argmax(-1)), arch
+    cfg = treg.reduced_config("qwen2-moe-a2.7b")
+    layer = tT.layer_params(tT.init_lm(cfg, seed=2, device="cuda")["layers"],
+                            0, torch.float32)["moe"]
+    x = torch.randn(3, 16, cfg.d_model, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    y, m = tM.moe_ffn(x, layer, cfg)
+    for g in range(3):
+        torch.testing.assert_close(tM._moe_ffn_tokens(x[g], layer, cfg)[0],
+                                   y[g], rtol=1e-5, atol=1e-5)
+    assert float(m["drop_fraction"]) == 0.0
 
 
 @pytest.mark.cuda

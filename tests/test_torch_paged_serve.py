@@ -113,9 +113,12 @@ def test_config_copies_agree():
             dataclasses.asdict(treg.reduced_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         treg.get("schnet")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TSM.make_server(treg.reduced_config("qwen2-moe-a2.7b"),
-                        TLayout(z=Z, slices_per_pool=SPP), 2, 64, "cpu")
+    # the reference's demo server runs dense LMs only (``assert not
+    # cfg.moe``; Gemma3's stacks have no ``params["layers"]``)
+    for arch in ("qwen2-moe-a2.7b", "gemma3-12b"):
+        with pytest.raises(ValueError, match="dense, all-global"):
+            TSM.make_server(treg.reduced_config(arch),
+                            TLayout(z=Z, slices_per_pool=SPP), 2, 64, "cpu")
 
 
 def test_decode_matches_reference_paged_and_dense(model):
