@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (the streaming index, single-device and
-document-sharded, the paged-KV decoder server, recsys serving and the
-LMs' forward, prefill and decode) on one GPU.
+document-sharded, the paged-KV decoder server, recsys serving, the LMs'
+forward, prefill and decode, and training) on one GPU.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,7 @@ Phases, in order (any failure raises and exits non-zero):
      term vocabulary into Earlybird's 2**23-tweet segment under the
      paper's production pools Z^g = <1, 4, 7, 11>, in 4096-tweet arrival
      batches; one rollover (freeze + slice reclamation), 2**20 more
-     tweets into the recycled pools, then a 64-query AOL-like batch
+     tweets into the recycled pools, then a 32-query AOL-like batch
      through the batched conjunctive / disjunctive / phrase / top-k /
      scored top-k (k = 10) / exhaustive scored routes, held against a
      numpy brute force over the stream (score = sum of min(tf, 255),
@@ -95,7 +95,7 @@ Phases, in order (any failure raises and exits non-zero):
      shard d % 4, every shard's ``[S, ...]`` state stacked on the card,
      Earlybird's 2**23-tweet segment as 2**21 local docs a shard, pools
      sized from each shard's own substream), one rollover, 2**20 more
-     tweets, phase 3's first 32 queries of every kind (four batches)
+     tweets, phase 3's first 16 queries of every kind (two batches)
      held against phase 3's brute force; ``bulk_append`` launched 4
      times a batch, ``intersect_mask`` (the shards' batched
      conjunctions) and the two batched frozen-segment kernels
@@ -121,7 +121,7 @@ Phases, in order (any failure raises and exits non-zero):
      ``lm_forward`` and ``lm_loss`` at B = 1 x 4,096 (the prefill's last
      logits against the forward's last row; the loss against a float64
      cross-entropy of the forward's logits), a traced forward; past the
-     window at one group's depth (5 local + 1 global) in fp32: 2 x 1024
+     window at one group's depth (5 local + 1 global) in fp32: 1024
      + 64 tokens decoded one at a time against the forward at every
      position, and with the int8 cache against the exact decode;
      Qwen2-MoE-A2.7B as published (24 layers, 60 experts top 4 + 4
@@ -133,10 +133,34 @@ Phases, in order (any failure raises and exits non-zero):
      prefill's bf16 cache of 256 tokens against the dense decode's,
      built token by token.
 
+  10. training, every model from a seed: (a) the ``embedding_bag_backward``
+     kernel (the table gradient of phase 6's bags) against its plain
+     version at DCN-v2's train_batch shapes (65,536 x 26 single-row bags
+     into the 33,762,816 x 16 fp32 table), on a Zipf(1.1) id stream, on
+     mean bags with empty ones, clipped ids and positions outside every
+     bag, and on a bf16 table: each call twice and bit-equal, rows of
+     one contribution bit-equal to the plain version, the rest within
+     1e-5 of their summed magnitudes; its time warm, flushed and by the
+     profiler beside the plain version, ``zeros + index_add_`` and the
+     bound; (b) exact restart: ``launch/train.py`` (TinyLlama's smoke
+     preset) crashed at step 9 and resumed, in a subprocess (the
+     launcher's deterministic mode), against an uninterrupted run; DCN-v2 as published
+     through ``TrainLoopRunner`` (6 steps, saves every 2, a failure at
+     step 5): every parameter and moment bit-equal; (c) one AdamW step
+     on the card against the same step on the CPU: TinyLlama-1.1B's
+     widths at 2 layers in fp32 (2 x 256 tokens, 2 microbatches) and the
+     four recsys archs at ``reduced_config``; (d) full-width training
+     steps: TinyLlama-1.1B as published (bf16, 8 x 4,096 tokens, 2
+     microbatches, remat; a traced step), Qwen2-MoE-A2.7B at its widths
+     with 2 of 24 layers (2 x 4,096), Gemma3-12B's first local/global
+     group (6 layers, 1 x 4,096), and DCN-v2 at train_batch (B 65,536;
+     (b)'s uninterrupted run, each step timed, one traced, the bag
+     launches counted).
+
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
-and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9
-(short rehearsals);
+and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9,
+``--train-only`` phases 1 and 10 (short rehearsals);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
@@ -195,11 +219,17 @@ from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.launch import time_segment_intersect as tsg  # noqa: E402
+from repro_torch.data import lm_data as tlm_data  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import recsys as rmodels  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
+from repro_torch.train import checkpoint as tckpt  # noqa: E402
+from repro_torch.train import elastic as telastic  # noqa: E402
+from repro_torch.train import optimizer as toptim  # noqa: E402
 from repro_torch.train import steps as rsteps  # noqa: E402
+from repro_torch.train import tree as ttree  # noqa: E402
 from repro_torch.kernels.segment_intersect import (  # noqa: E402
     SCORE_MAX, SEG_BLOCK, attach_scores, decode_packed, decode_scores,
     decode_stacked, pack_docids, stack_packed, stack_scored)
@@ -217,6 +247,9 @@ REPLACES = {
         "src/repro/kernels/segment_intersect.py:753",
     "paged_attention": "src/repro/kernels/paged_attention.py:92",
     "embedding_bag": "src/repro/kernels/embedding_bag.py:61",
+    # no Pallas kernel: the gradient of the table read, XLA's transpose
+    # of the reference's jnp.take
+    "embedding_bag_backward": "src/repro/models/recsys.py:55",
 }
 SOURCES = {
     "bulk_append": "src/repro_torch/csrc/bulk_append.cu",
@@ -227,8 +260,11 @@ SOURCES = {
     "scored_intersect_batched": "src/repro_torch/csrc/scored_intersect.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+    "embedding_bag_backward": "src/repro_torch/csrc/embedding_bag_backward.cu",
 }
 SCORED_K = 10                # the scored top-k route's k
+MAIN_QUERIES = 32            # phase 3's queries of each kind (a depth cut:
+                             # 64 until the training phase came)
 INVALID = 0xFFFFFFFF         # the lists' pad and the heap's NULL
 
 
@@ -261,10 +297,37 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # data: the tweet stream and the brute-force oracle
 # ---------------------------------------------------------------------------
+def _zipf_corpus_on_card(spec) -> np.ndarray:
+    """``synth.zipf_corpus(spec)`` with its inverse-CDF search on the card:
+    numpy's ``Generator.choice(n, size, p=p)`` draws ``rng.random(size)``
+    and searches ``p``'s normalised cumulative sum (side="right"), so the
+    same draws searched by ``torch.searchsorted`` give the same ids, in a
+    fraction of the host's time (about 100M draws a full-width stream)."""
+    rng = np.random.default_rng(spec.seed)
+    probs = synth._zipf_probs(spec.vocab, spec.alpha)
+    perm = rng.permutation(spec.vocab)
+    lens = np.clip(rng.poisson(spec.mean_len, spec.n_docs), 1, spec.max_len)
+    docs = np.full((spec.n_docs, spec.max_len), -1, np.int32)
+    cdf = probs.cumsum()
+    cdf /= cdf[-1]
+    u = torch.as_tensor(rng.random(int(lens.sum())), device="cuda")
+    idx = torch.searchsorted(torch.as_tensor(cdf, device="cuda"), u,
+                             right=True).cpu().numpy()
+    docs[np.arange(spec.max_len)[None, :] < lens[:, None]] = perm[idx]
+    return docs
+
+
 def make_stream(vocab: int, n_docs: int, seed: int) -> np.ndarray:
+    """``synth.zipf_corpus``'s stream, its search on the card; a small
+    stream must first come out bit-equal to numpy's own."""
     spec = synth.CorpusSpec(vocab=vocab, n_docs=n_docs, mean_len=11,
                             max_len=70, alpha=1.0, seed=seed)
-    return synth.zipf_corpus(spec)
+    small = dataclasses.replace(spec, vocab=4096, n_docs=20000)
+    if not np.array_equal(_zipf_corpus_on_card(small),
+                          synth.zipf_corpus(small)):
+        raise AssertionError("tweet streams: the inverse-CDF search on the "
+                             "card does not give numpy's stream")
+    return _zipf_corpus_on_card(spec)
 
 
 def next_stream(vocab: int, n_docs: int, seed: int,
@@ -2003,7 +2066,7 @@ def phase_index(segment_log2: int, serve_only: bool = False):
         kernels = phase_kernels(docs, layout, vocab, seg_docs, q_rows,
                                 seed=5)
     main_sum, eng = phase_main(docs, layout, vocab, seg_docs, extra, q_rows,
-                               n_queries=64, fmax=fmax, keep=True)
+                               n_queries=MAIN_QUERIES, fmax=fmax, keep=True)
     oracle = main_sum.pop("oracle")
     t0 = time.perf_counter()
     n = checked_routes()
@@ -2090,7 +2153,7 @@ def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
 # phase 8: the document-sharded index, four shards stacked on the card
 # ---------------------------------------------------------------------------
 SHARDS = 4                    # S: docid d lives on shard d % S
-SHARDED_QUERIES = 32          # phase 3's first 32 queries of each kind: a
+SHARDED_QUERIES = 16          # phase 3's first 16 queries of each kind: a
                               # depth cut that keeps the script in its limit
 
 
@@ -3126,7 +3189,7 @@ def lm_gemma(seed: int) -> dict:
                                param_dtype="float32",
                                compute_dtype="float32")
     params = lm.init_lm(cfg6, seed=seed, device="cuda")
-    S = 2 * cfg.sliding_window + 64
+    S = cfg.sliding_window + 64       # the ring wraps once
     toks = _lm_tokens(cfg6, 1, S, seed + 1)
     fwd = lm.lm_forward(params, toks, cfg6, q_chunk=S // 2)
     (dec, sec) = _timed(lambda: _decode_vs_forward(
@@ -3186,7 +3249,8 @@ def lm_qwen(seed: int) -> dict:
     del fwd
     # one layer's grouped dispatch against the token path, group by group,
     # in fp32 at full width (the reference's tests/test_moe_grouped.py form)
-    layer = lm.layer_params(params["layers"], 0, torch.float32)["moe"]
+    layer = lm.cast_layer(lm.unbind_layers(params["layers"])[0],
+                          torch.float32)["moe"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(4, 1024, cfg.d_model, generator=gen, device="cuda")
     y, m = lm_moe.moe_ffn(x, layer, cfg)
@@ -3312,6 +3376,499 @@ def phase_lm(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training
+# ---------------------------------------------------------------------------
+BWD_ERR = 1e-5        # backward vs plain on rows of many contributions:
+                      # |d| over the row's summed |contributions| (fp32
+                      # sum order; the plain version's atomics take any)
+TRAIN_RTOL = 1e-5     # card vs CPU: loss, parameters (and atol), and the
+                      # moments (atol: 1e-5 x the leaf's largest moment)
+GNORM_RTOL = 1e-4     # card vs CPU grad_norm
+TRAIN_LEN = 4096      # train_4k's sequence length
+TINY_TRAIN_B = 8      # sequences a TinyLlama step (cut from train_4k's 256)
+DCN_STEPS, DCN_SAVE, DCN_FAIL = 6, 2, 5
+DCN_TRACED = 3        # the uninterrupted DCN-v2 run's traced step
+LM_RESTART = ("--arch", "tinyllama-1.1b", "--steps", "12", "--save-every",
+              "4", "--log-every", "4")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[
+        t.element_size()])
+
+
+def _bit_equal(a, b) -> bool:
+    return all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(ttree.leaves(a), ttree.leaves(b)))
+
+
+def bwd_case(seed: int, name: str, R: int, D: int, dtype, lens, ids,
+             mode: str, lo: int = 0, hi: int = 0):
+    """(name, grad_out, indices, offsets, mode, R, dtype) on the card;
+    ``ids(n)`` draws the n indices."""
+    off = np.zeros(len(lens) + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    off += lo
+    n = int(off[-1]) + hi
+    g = torch.randn(len(lens), D, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    return (name, g, torch.as_tensor(ids(n), dtype=torch.int32,
+                                     device="cuda"),
+            torch.as_tensor(off, dtype=torch.int32, device="cuda"), mode, R,
+            dtype)
+
+
+def bwd_cases(seed: int) -> list:
+    """DCN-v2 at train_batch (65,536 x 26 single-row bags into the
+    33,762,816 x 16 fp32 table, uniform ids per field: the path's call),
+    the same bags over a duplicate-heavy Zipf(1.1) id stream, mean bags
+    with empty ones, ids out of range and positions outside every bag,
+    and a bf16 table of pooled mean bags."""
+    rng = np.random.default_rng(seed)
+    cfg = registry.get("dcn-v2").config
+    R = rmodels.padded_rows(cfg.total_rows)
+    B = registry.get_shape("dcn-v2", "train_batch").global_batch
+    foff = np.zeros(cfg.n_sparse, np.int64)
+    foff[1:] = np.cumsum(cfg.vocab_sizes)[:-1]
+
+    def path_ids(n):
+        ids = np.stack([rng.integers(0, v, B) for v in cfg.vocab_sizes], 1)
+        return (ids + foff).reshape(-1)
+    nb = B * cfg.n_sparse
+    ones = np.ones(nb, np.int64)
+    mixed = rng.integers(0, 9, 65536)
+    mixed[rng.random(65536) < 0.2] = 0
+    return [
+        bwd_case(seed, "dcn-v2 train_batch", R, 16, torch.float32, ones,
+                 path_ids, "sum"),
+        bwd_case(seed + 1, "zipf(1.1) ids", R, 16, torch.float32, ones,
+                 lambda n: rng.zipf(1.1, n) % R, "sum"),
+        bwd_case(seed + 2, "mean, empty bags, clipped ids, outside positions", R,
+                 16, torch.float32, mixed,
+                 lambda n: rng.integers(-100, R + 100, n), "mean",
+                 lo=1000, hi=5000),
+        bwd_case(seed + 3, "bf16 table, pooled mean bags", 1 << 20, 128,
+                 torch.bfloat16, rng.integers(0, 41, 4096),
+                 lambda n: rng.zipf(1.05, n) % (1 << 20), "mean"),
+    ]
+
+
+def check_bwd(name, g, idx, off, mode, R, dtype) -> float:
+    """The kernel twice (bit-equal run to run) against its plain version
+    on the card: rows of one contribution bit-equal, untouched rows zero,
+    the rest within ``BWD_ERR`` of the row's summed |contributions| (a
+    bf16 table: plus one bf16 ulp of the plain value).  Returns the max
+    absolute difference from the plain version."""
+    got = ops.embedding_bag_backward(g, idx, off, mode, R, dtype)
+    again = ops.embedding_bag_backward(g, idx, off, mode, R, dtype)
+    torch.cuda.synchronize()
+    if got.shape != (R, g.shape[1]) or got.dtype != dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(_bits(got), _bits(again)):
+        raise AssertionError(f"{name}: two calls differ")
+    del again
+    want = ref.embedding_bag_backward_ref(g, idx, off, mode, R, dtype)
+    pos = torch.arange(idx.numel(), device="cuda")
+    inside = (pos >= off[0]) & (pos < off[-1])
+    cnt = torch.bincount(idx.long().clamp(0, R - 1)[inside], minlength=R)
+    one, none = cnt == 1, cnt == 0
+    if not torch.equal(_bits(got[one]), _bits(want[one])):
+        raise AssertionError(f"{name}: a row of one contribution differs "
+                             f"from the plain version")
+    if bool((got[none] != 0).any()):
+        raise AssertionError(f"{name}: an untouched row is not zero")
+    many = cnt > 1
+    mag = ref.embedding_bag_backward_ref(g.abs(), idx, off, mode, R,
+                                         torch.float32)[many]
+    d = (got[many].float() - want[many].float()).abs()
+    slack = 2 ** -7 * want[many].float().abs() if dtype == torch.bfloat16 \
+        else 0.0           # one bf16 ulp: the two fp32 sums may round apart
+    if not torch.isfinite(got).all() or bool((d > BWD_ERR * mag + slack)
+                                             .any()):
+        raise AssertionError(f"{name}: beyond {BWD_ERR} of the summed "
+                             f"magnitudes")
+    rel = float((d / mag.clamp(min=1e-30)).max()) if d.numel() else 0.0
+    err = float(d.max()) if d.numel() else 0.0
+    log(f"embedding_bag_backward {name}: {g.shape[0]} bags, {idx.numel()} "
+        f"positions, {int(one.sum())} rows of one contribution bit-equal, "
+        f"{int(many.sum())} of many (at most {int(cnt.max())}): max abs err "
+        f"{err:.3g}, {rel:.3g} of the summed magnitudes; bit-equal run to "
+        f"run")
+    return err
+
+
+def bwd_timing(case) -> dict:
+    """The wrapper (plan and kernels) warm, L2-flushed and by the
+    profiler, beside its plain version, the library call and the bound:
+    the dense d_table write and one read of grad_out, the indices and the
+    offsets."""
+    name, g, idx, off, mode, R, dtype = case
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return ops.embedding_bag_backward(g, idx, off, mode, R, dtype)
+    lens = (off[1:] - off[:-1]).long()
+    rows = idx.long().clamp(0, R - 1)[int(off[0]):int(off[-1])]
+    n = rows.numel()
+
+    def library():
+        return torch.zeros(R, g.shape[1], dtype=torch.float32,
+                           device="cuda").index_add_(
+            0, rows, g.repeat_interleave(lens, dim=0, output_size=n))
+    esize = torch.empty((), dtype=dtype).element_size()
+    need = R * g.shape[1] * esize + g.numel() * 4 + idx.numel() * 4 + \
+        off.numel() * 4
+    prof = device_profile(kernel, warm=True)
+    row = dict(ms=cuda_ms_cold(kernel, flush), ms_warm=cuda_ms(kernel),
+               device_ms=prof["busy_ms"],
+               plain_ms=cuda_ms_cold(lambda: ref.embedding_bag_backward_ref(
+                   g, idx, off, mode, R, dtype), flush),
+               library_ms=cuda_ms_cold(library, flush), bytes=need,
+               bound_ms=need / HBM_BYTES_PER_S * 1e3)
+    log(f"kernel embedding_bag_backward at {name} ({g.shape[0]} bags, "
+        f"{idx.numel()} positions, R {R}, D {g.shape[1]}, {dtype}): "
+        f"{row['ms_warm']:.4f} ms warm, {row['ms']:.4f} flushed, "
+        f"{row['device_ms']:.4f} device by the profiler ({top_ops(prof, 4)});"
+        f" plain {row['plain_ms']:.4f} ms, library (zeros + index_add_ of "
+        f"repeat_interleave) {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({need} bytes)")
+    return row
+
+
+def lm_launcher_restart(tmp: str) -> dict:
+    """(b) ``launch/train.py``'s ``main`` (the smoke preset) crashed at
+    ``--fail-at 9``, rerun with ``--resume``, and run uninterrupted from
+    scratch, in one subprocess: on the card the launcher runs in
+    deterministic mode with cuBLAS's fixed workspace, which must be set
+    before cuBLAS starts, and no other phase runs in that mode (a process
+    takes about 17 s to start on the card): the step-12 checkpoints
+    (every parameter and moment) and the final losses bit-equal."""
+    env = dict(os.environ,
+               PYTHONPATH=_SRC + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    crash, clean = os.path.join(tmp, "crash"), os.path.join(tmp, "clean")
+    args = list(LM_RESTART)
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        "try:\n"
+        f"    train.main({args + ['--ckpt-dir', crash, '--fail-at', '9']!r})\n"
+        "    sys.exit('no injected failure')\n"
+        "except SystemExit as e:\n"
+        "    print(f'crashed: {e}')\n"
+        f"train.main({args + ['--ckpt-dir', crash, '--resume']!r})\n"
+        f"train.main({args + ['--ckpt-dir', clean]!r})\n")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if p.returncode or "crashed: injected failure at step 9" not in \
+            p.stdout or "resumed from step 8" not in p.stdout:
+        raise AssertionError(f"train launcher: rc {p.returncode}\n"
+                             f"{p.stdout}\n{p.stderr}")
+    got = []
+    for d in (clean, crash):
+        with np.load(os.path.join(d, "step_00000012.npz")) as z:
+            got.append({k: z[k].tobytes() for k in z.files})
+        with open(os.path.join(d, "MANIFEST.json")) as fh:
+            got.append(json.load(fh)["extra"]["loss"])
+    if got[0] != got[2] or got[1] != got[3]:
+        raise AssertionError("train launcher: the resumed run's step-12 "
+                             "checkpoint or loss differs from the "
+                             "uninterrupted run's")
+    log(f"train launcher (smoke preset, a subprocess): crash "
+        f"at step 9, resume from step 8: the step-12 parameters and moments "
+        f"({len(got[0])} leaves) and the final loss {got[1]!r} bit-equal to "
+        f"the uninterrupted run; {seconds:.1f} s")
+    return dict(loss=got[1], leaves=len(got[0]), seconds=seconds)
+
+
+def dcn_batches(cfg, B: int, n: int, seed: int) -> list:
+    spec = dataclasses.replace(registry.get_shape("dcn-v2", "train_batch"),
+                               global_batch=B)
+    out = []
+    for s in range(n):
+        rng = np.random.default_rng([seed, s])
+        b = recsys_batch(cfg, spec, rng)
+        b["label"] = torch.as_tensor(rng.integers(0, 2, B),
+                                     dtype=torch.float32, device="cuda")
+        out.append(b)
+    return out
+
+
+def dcn_train(tmp: str, seed: int) -> dict:
+    """(b) and (d) for DCN-v2 as published (fp32, the 33,762,816 x 16
+    table) at train_batch (B 65,536) through ``TrainLoopRunner``: an
+    uninterrupted run of 6 steps (each timed, step 3 traced, launches
+    counted), then a run saving every 2 steps that fails at step 5 and is
+    resumed from step 4 (the resumed steps save nothing: 6.07 GiB a
+    file): every parameter and moment bit-equal to the uninterrupted
+    run's.  The path's determinism is the bag kernels':
+    this runs without deterministic mode."""
+    cfg = registry.get("dcn-v2").config
+    entry = registry.get("dcn-v2")
+    B = registry.get_shape("dcn-v2", "train_batch").global_batch
+    batches = dcn_batches(cfg, B, DCN_STEPS, seed)
+    opt = toptim.AdamW()
+    step = rsteps.make_recsys_train_step(cfg, opt)
+    times, losses, traced = [], [], {}
+
+    def step_fn(p, s, b):
+        """One step, timed (``DCN_TRACED``: under the profiler)."""
+        if len(times) == DCN_TRACED:
+            traced.update(device_profile(lambda: step(p, s, b)))
+            out, dt = traced.pop("out"), traced["wall_ms"] / 1e3
+        else:
+            out, dt = _timed(lambda: step(p, s, b))
+        times.append(dt)
+        losses.append(float(out[2]["loss"]))
+        return out
+
+    params = rsteps.init_params_for(entry, cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runner = telastic.TrainLoopRunner(step_fn, tckpt.CheckpointManager(
+        os.path.join(tmp, "dcn-clean")), save_every=DCN_STEPS + 1)
+    _, p_clean, s_clean = runner.run(params, opt.init(params), batches)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    if counts["embedding_bag"] != DCN_STEPS or \
+            counts["embedding_bag_backward"] != DCN_STEPS:
+        raise AssertionError(f"dcn-v2 training: launches {counts}, expected "
+                             f"{DCN_STEPS} of each bag kernel")
+    t_ckpt = time.perf_counter()
+    params = rsteps.init_params_for(entry, cfg, seed=seed, device="cuda")
+    mgr = tckpt.CheckpointManager(os.path.join(tmp, "dcn-crash"), keep=2)
+    runner = telastic.TrainLoopRunner(step, mgr, save_every=DCN_SAVE)
+    try:
+        runner.run(params, opt.init(params), batches, fail_at=DCN_FAIL)
+        raise AssertionError("dcn-v2: no injected failure")
+    except RuntimeError as e:
+        if "injected failure at step 5" not in str(e):
+            raise
+    start, p, s = runner.resume(params, opt.init(params))
+    del params
+    runner.save_every = DCN_STEPS + 1   # the check needs no step-6 file
+    _, p_crash, s_crash = runner.run(p, s, batches[start:],
+                                     start_step=start)
+    torch.cuda.synchronize()
+    t_ckpt = time.perf_counter() - t_ckpt
+    if not all(np.isfinite(losses)) or start != 4 or not _bit_equal((p_clean, s_clean), (p_crash, s_crash)):
+        raise AssertionError(f"dcn-v2: resumed from {start}; the resumed "
+                             f"run's state differs from the uninterrupted "
+                             f"run's")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in ttree.leaves((p_clean, s_clean)))
+    med = float(np.median(times[1:]))
+    out = dict(step_s=times, median_s=med, samples_per_s=B / med,
+               peak_bytes=peak, launches=counts, idle=traced["idle"],
+               traced_ms=traced["wall_ms"], busy_ms=traced["busy_ms"],
+               top=top_ops(traced, 3), restart_s=t_ckpt,
+               state_bytes=state_bytes, losses=losses)
+    log(f"dcn-v2 training (fp32, table {rmodels.padded_rows(cfg.total_rows)}"
+        f" x {cfg.embed_dim}, B {B}): steps "
+        f"{', '.join(f'{t:.4f}' for t in times)} s (step {DCN_TRACED + 1} "
+        f"traced), median {med:.4f} s, {B / med:.0f} samples/s; peak "
+        f"{peak / 2**30:.2f} GiB; bag launches a step: forward "
+        f"{counts['embedding_bag'] // DCN_STEPS}, backward "
+        f"{counts['embedding_bag_backward'] // DCN_STEPS}; traced step "
+        f"{traced['wall_ms']:.2f} ms wall, {traced['busy_ms']:.2f} ms device"
+        f", idle {traced['idle']:.3f}; top ops {out['top']}; loss "
+        f"{', '.join(f'{x:.5f}' for x in losses)}")
+    log(f"dcn-v2 exact restart: fail at step {DCN_FAIL}, resumed from step "
+        f"{start} (saves every {DCN_SAVE}; {state_bytes / 2**30:.2f} GiB of "
+        f"state a checkpoint): every parameter and moment bit-equal to the "
+        f"uninterrupted run; {t_ckpt:.1f} s for the crashed run, its "
+        f"checkpoints and the resume")
+    del p_clean, s_clean, p_crash, s_crash, p, s
+    return out
+
+
+def _allclose_tree(name, got, want, leaf_scale: bool) -> float:
+    """Leaves of ``got`` (card) against ``want`` (CPU): within
+    ``TRAIN_RTOL`` relative, absolute ``TRAIN_RTOL`` (``leaf_scale``:
+    times the leaf's largest |want|); returns the worst |d|."""
+    worst = 0.0
+    for (path, g), w in zip(ttree.items_with_path(got), ttree.leaves(want)):
+        g, w = g.cpu().float(), w.float()
+        atol = TRAIN_RTOL * (float(w.abs().max()) if leaf_scale else 1.0)
+        d = (g - w).abs()
+        if bool((d > atol + TRAIN_RTOL * w.abs()).any()):
+            raise AssertionError(f"{name} {'/'.join(path)}: max |d| "
+                                 f"{float(d.max()):.3g} (atol {atol:.3g})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _card_vs_cpu(name, make_step, params_cpu, batch_cpu, metrics) -> dict:
+    """One step of the same train step on the CPU and on the card from
+    the same parameters and batch."""
+    to = lambda t: t.to("cuda")                          # noqa: E731
+    opt = toptim.AdamW()
+    params_gpu = ttree.tree_map(to, params_cpu)
+    step = make_step(opt)
+    pc, sc, mc = step(params_cpu, opt.init(params_cpu), batch_cpu)
+    pg, sg, mg = step(params_gpu, opt.init(params_gpu),
+                      {k: to(v) for k, v in batch_cpu.items()}
+                      if isinstance(batch_cpu, dict) else to(batch_cpu))
+    torch.cuda.synchronize()
+    out = {}
+    for k in metrics:
+        c, g = float(mc[k]), float(mg[k])
+        tol = GNORM_RTOL if k == "grad_norm" else TRAIN_RTOL
+        if not abs(g - c) <= tol * abs(c):
+            raise AssertionError(f"{name} {k}: card {g!r}, CPU {c!r}")
+        out[k] = (g, c)
+    out["params_max_d"] = _allclose_tree(name + " params", pg, pc, False)
+    out["mu_max_d"] = _allclose_tree(name + " mu", sg.mu, sc.mu, True)
+    out["nu_max_d"] = _allclose_tree(name + " nu", sg.nu, sc.nu, True)
+    return out
+
+
+def train_card_vs_cpu(seed: int) -> dict:
+    """(c) TinyLlama-1.1B's widths at 2 layers in fp32, 2 x 256 tokens, 2
+    microbatches; the four recsys archs at ``reduced_config`` (B 64): one
+    AdamW step (the reference's defaults) on the card against the port on
+    the CPU."""
+    out = {}
+    cfg = dataclasses.replace(registry.get("tinyllama-1.1b").config,
+                              n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    params = lm.init_lm(cfg, seed=seed, device="cpu")
+    toks = tlm_data.make_batch_fn(tlm_data.LMDataConfig(
+        vocab=cfg.vocab, batch=2, seq_len=256), device="cpu")(0)
+    out["tinyllama-1.1b/2 layers"] = _card_vs_cpu(
+        "tinyllama-1.1b 2 layers fp32", lambda opt: rsteps.make_lm_train_step(
+            cfg, opt, n_microbatches=2, q_chunk=128), params, toks,
+        ("loss", "grad_norm"))
+    del params
+    for arch, _, _ in RECSYS_CELLS:
+        rcfg = registry.reduced_config(arch)
+        params = rsteps.init_params_for(registry.get(arch), rcfg, seed=seed,
+                                        device="cpu")
+        spec = dataclasses.replace(registry.get_shape(arch, "train_batch"),
+                                   global_batch=64)
+        rng = np.random.default_rng(seed)
+        b = recsys_batch(rcfg, spec, rng, "cpu")
+        b["label"] = torch.as_tensor(rng.integers(0, 2, 64),
+                                     dtype=torch.float32)
+        out[arch] = _card_vs_cpu(
+            f"{arch} reduced", lambda opt, c=rcfg:
+            rsteps.make_recsys_train_step(c, opt), params, b, ("loss",))
+    log("train steps, card vs CPU (one AdamW step, TF32 off): " +
+        json.dumps(out))
+    return out
+
+
+def lm_train(name: str, cfg, B: int, n_micro: int, steps: int, seed: int,
+             traced: bool) -> dict:
+    """``steps`` train steps of ``cfg`` at ``B`` x ``TRAIN_LEN`` tokens
+    from ``data/lm_data.py`` (remat on, AdamW's defaults), each timed;
+    the last traced when ``traced``; loss and grad_norm finite."""
+    _lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    opt = toptim.AdamW()
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = rsteps.make_lm_train_step(cfg, opt, n_microbatches=n_micro,
+                                     q_chunk=512)
+    batch_at = tlm_data.make_batch_fn(tlm_data.LMDataConfig(
+        vocab=cfg.vocab, batch=B, seq_len=TRAIN_LEN, seed=seed),
+        device="cuda")
+    times, metrics, prof = [], [], None
+    for i in range(steps):
+        toks = batch_at(i)
+        if traced and i == steps - 1:
+            prof = device_profile(lambda: step(params, state, toks))
+            params, state, m = prof["out"]
+            times.append(prof["wall_ms"] / 1e3)
+        else:
+            (params, state, m), dt = _timed(lambda: step(params, state,
+                                                         toks))
+            times.append(dt)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not all(np.isfinite(v) for v in metrics[-1].values()):
+            raise AssertionError(f"{name}: step {i} metrics {metrics[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    n = _n_params(params)
+    # tokens/s over the untraced steps after the first (which warms the
+    # allocator and cuBLAS), or the one step there is
+    plain = times[1:-1] if traced else times[1:]
+    step_s = float(np.median(plain)) if plain else times[0]
+    out = dict(layers=cfg.n_layers, params=n, batch=B, seq=TRAIN_LEN,
+               n_micro=n_micro, init_s=init_s, step_s=times,
+               tokens_per_s=B * TRAIN_LEN / step_s, metrics=metrics,
+               peak_bytes=peak)
+    msg = (f"{name} training ({cfg.n_layers} layers, {n / 1e9:.2f}B params, "
+           f"{cfg.param_dtype}, B {B} x {TRAIN_LEN}, {n_micro} microbatches,"
+           f" remat {cfg.remat}): init {init_s:.1f} s; steps "
+           f"{', '.join(f'{t:.3f}' for t in times)} s"
+           + (" (the last traced)" if traced else "")
+           + f"; {out['tokens_per_s']:.0f} tokens/s at {step_s:.3f} s a step;"
+           f" loss "
+           f"{', '.join(str(round(m['loss'], 4)) for m in metrics)}; "
+           f"grad_norm {', '.join(str(round(m['grad_norm'], 4)) for m in metrics)}"
+           f"; peak {peak / 2**30:.2f} GiB")
+    if prof is not None:
+        out.update(idle=prof["idle"], busy_ms=prof["busy_ms"],
+                   events=prof["events"], top=top_ops(prof))
+        msg += (f"; traced step {prof['wall_ms']:.1f} ms wall, "
+                f"{prof['busy_ms']:.1f} ms device, idle {prof['idle']:.3f}, "
+                f"{prof['events']} device events; top ops {out['top']}")
+    log(msg)
+    del params, state
+    _lm_free()
+    return out
+
+
+def phase_train(seed: int) -> dict:
+    """Phase 10; returns the embedding_bag_backward kernel row and the
+    phase's results."""
+    _lm_free()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cases = bwd_cases(seed)
+    err = max(check_bwd(*c) for c in cases)
+    timing = bwd_timing(cases[0])
+    del cases
+    _lm_free()
+    res = dict(kernel_s=time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["launcher"] = lm_launcher_restart(tmp)
+        res["dcn-v2"] = dcn_train(tmp, seed)
+    _lm_free()
+    res["card_vs_cpu"] = train_card_vs_cpu(seed)
+    tiny = registry.get("tinyllama-1.1b").config
+    res["tinyllama-1.1b"] = lm_train("tinyllama-1.1b", tiny, TINY_TRAIN_B, 2,
+                                     3, seed, traced=True)
+    qwen = dataclasses.replace(registry.get("qwen2-moe-a2.7b").config,
+                               n_layers=2)
+    res["qwen2-moe-a2.7b"] = lm_train("qwen2-moe-a2.7b (2 of 24 layers)",
+                                      qwen, 2, 1, 1, seed, traced=False)
+    gemma = dataclasses.replace(registry.get("gemma3-12b").config,
+                                n_layers=6)
+    res["gemma3-12b"] = lm_train("gemma3-12b (one 5 local + 1 global group)",
+                                 gemma, 1, 1, 1, seed, traced=False)
+    launches = res["dcn-v2"]["launches"]["embedding_bag_backward"]
+    row = dict(name="embedding_bag_backward", route="cuda",
+               source=SOURCES["embedding_bag_backward"],
+               replaces=REPLACES["embedding_bag_backward"],
+               launches=launches, path="train", max_abs_err=err,
+               ms=timing["ms"], plain_ms=timing["plain_ms"],
+               bound_ms=timing["bound_ms"], bound_by="bytes",
+               library_ms=timing["library_ms"])
+    res["kernel"] = timing
+    return row, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segment-log2", type=int, default=23,
@@ -3327,6 +3884,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="run only the build and the LMs at full width "
                          "(phase 9)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run only the build and training (phase 10)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the build and the sharded index (phase "
                          "8, with its own brute force)")
@@ -3365,9 +3924,11 @@ def main(argv=None) -> int:
         docs, _, vocab, seg_docs, extra, _ = index_stream(args.segment_log2)
         phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
         del docs
-    elif not (args.paged_only or args.recsys_only or args.lm_only):
+    elif not (args.paged_only or args.recsys_only or args.lm_only or
+              args.train_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
-    only = args.serve_only or args.sharded_only or args.lm_only
+    only = (args.serve_only or args.sharded_only or args.lm_only or
+            args.train_only)
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -3386,11 +3947,18 @@ def main(argv=None) -> int:
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or saving):
+            args.sharded_only or args.train_only or saving):
         t0 = time.perf_counter()
         lms = phase_lm(seed=0)
         log("lm phase: " + json.dumps(lms))
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
+    if not (args.paged_only or args.recsys_only or args.serve_only or
+            args.sharded_only or args.lm_only or saving):
+        t0 = time.perf_counter()
+        row, trained = phase_train(seed=0)
+        table.append(row)
+        log("train phase: " + json.dumps(trained))
+        log(f"train phase {time.perf_counter() - t0:.1f} s")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     print(card, flush=True)

@@ -12,7 +12,9 @@ engine would — and :func:`dump_lifecycle` reads one back out.
 The LM side carries a reference ``init_lm`` parameter tree (nested
 dicts of numpy arrays) and a ``PagedKVState`` (uint32 ``link``/``tail``
 as int64 here) across the same way, and the recsys side a reference
-recsys parameter tree (dicts and lists of numpy arrays).
+recsys parameter tree (dicts and lists of numpy arrays).  An optimizer
+state (``AdamWState`` or ``CompressedState``, any object with those
+fields) crosses as its parameter trees do.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.core.segments import FrozenSegment
 from repro_torch.core.sharded_index import ShardedFrozenSegment
 from repro_torch.core.slicepool import PoolState
 from repro_torch.paged.kv_cache import PagedKVState
+from repro_torch.train.compression import CompressedState
+from repro_torch.train.optimizer import AdamWState
 
 # reference dtype of each PoolState leaf; torch carries uint32 as int64
 POOL_DTYPES = {"heap": np.uint32, "watermark": np.int32, "tail": np.uint32,
@@ -167,6 +171,34 @@ def params_to_numpy(params) -> dict:
 
 lm_params_from_numpy = recsys_params_from_numpy = params_from_numpy
 lm_params_to_numpy = recsys_params_to_numpy = params_to_numpy
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's ``AdamWState`` (or ``CompressedState``) from the
+    reference's, its leaves numpy arrays: ``step`` int32, each moment in
+    its array's dtype (the moment dtype; bf16 travels as its bit
+    pattern), the residuals fp32."""
+    if hasattr(state, "residual"):
+        return CompressedState(
+            inner=opt_state_from_numpy(state.inner, device),
+            residual=_map_tree(lambda a, key: _tensor(
+                a, device, torch.float32), state.residual))
+    return AdamWState(
+        step=_tensor(state.step, device, torch.int32),
+        mu=_map_tree(lambda a, key: _tensor(a, device), state.mu),
+        nu=_map_tree(lambda a, key: _tensor(a, device), state.nu))
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The inverse of :func:`opt_state_from_numpy` as a dict of the
+    fields (``step``, ``mu``, ``nu``, or ``inner`` and ``residual``);
+    bf16 leaves as float32."""
+    if hasattr(state, "residual"):
+        return {"inner": opt_state_to_numpy(state.inner),
+                "residual": _map_tree(_leaf_to_numpy, state.residual)}
+    return {"step": _leaf_to_numpy(state.step),
+            "mu": _map_tree(_leaf_to_numpy, state.mu),
+            "nu": _map_tree(_leaf_to_numpy, state.nu)}
 
 
 def kv_state_from_numpy(leaves: Mapping[str, np.ndarray],

@@ -4,8 +4,8 @@ The reference runs each document shard on its own (possibly emulated)
 device inside ``shard_map``.  Here every shard lives in one process on
 one device, as row ``s`` of a leading ``[S, ...]`` axis, so the
 collectives are plain tensor ops on that axis: ``all_gather`` is a
-concatenation and ``psum`` a sum.  Results are the same bits as the
-reference's collectives over the same shard values.
+concatenation, ``psum`` a sum and ``pmax`` a max.  Results are the same
+bits as the reference's collectives over the same shard values.
 """
 from __future__ import annotations
 
@@ -31,3 +31,8 @@ def all_gather(x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
 def psum(x: torch.Tensor) -> torch.Tensor:
     """Sum a stacked ``x[S, ...]`` over its shards."""
     return x.sum(0, dtype=x.dtype)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of a stacked ``x[S, ...]`` over its shards."""
+    return x.amax(0)

@@ -16,6 +16,13 @@ the table's base address and the SM count: the kernel only checks it.
 
 The plain torch version is ``kernels.ref.embedding_bag_ref``;
 ``kernels.ops.embedding_bag`` routes by the table's device.
+
+The table's gradient is a second kernel (``csrc/embedding_bag_backward.cu``,
+:func:`embedding_bag_backward`): it sums each row's contributions in a
+fixed order, bit-identical from run to run.  Its plain version is
+``kernels.ref.embedding_bag_backward_ref``; ``kernels.ops.embedding_bag``
+joins the two in an autograd function for a CUDA table that needs a
+gradient.
 """
 from __future__ import annotations
 
@@ -117,3 +124,89 @@ def embedding_bag(table, indices, offsets, mode: str = "sum"):
 
 
 embedding_bag.launches = 0
+
+
+BWD_CHUNK = 32         # sorted entries per chunk (kChunk in the source)
+BWD_WARPS = 8          # warps per CTA of its chunk kernels
+
+
+@dataclass(frozen=True)
+class BackwardPlan:
+    """How one backward launch cuts its work (see
+    ``csrc/embedding_bag_backward.cu``)."""
+    vec: int             # fp32 columns per lane load
+    lanes: int           # lanes that share one row
+    n_chunks: int        # chunks of BWD_CHUNK sorted entries
+    grid: int            # CTAs of BWD_WARPS warps for the chunk kernels
+
+
+def backward_plan(D: int, grad_ptr: int, n: int) -> BackwardPlan:
+    """The widest of 4, 2 and 1 fp32 a lane that divides ``D`` and the
+    gradient's base address; a group of ``lanes`` lanes per chunk, as many
+    groups a warp as fit."""
+    vec = next(v for v in (4, 2, 1) if D % v == 0 and grad_ptr % (4 * v) == 0)
+    lanes = min(32, -(-D // vec))
+    n_chunks = -(-n // BWD_CHUNK)
+    per_cta = (32 // lanes) * BWD_WARPS
+    return BackwardPlan(vec, lanes, n_chunks,
+                        max(1, min(-(-n_chunks // per_cta), MAX_GRID)))
+
+
+def sort_positions(indices, offsets, num_rows: int):
+    """The backward's sort: every position's clipped row (``num_rows``
+    for a position outside ``[offsets[0], offsets[B])``), sorted stably,
+    and the positions in that order; int32 both.  No host sync."""
+    n = indices.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=indices.device)
+    inside = (pos >= offsets[0]) & (pos < offsets[-1])
+    key = torch.where(inside, indices.clamp(0, num_rows - 1), num_rows)
+    key, perm = torch.sort(key, stable=True)
+    return key.to(torch.int32), perm.to(torch.int32)
+
+
+def embedding_bag_backward(grad_out, indices, offsets, mode: str,
+                           num_rows: int, dtype):
+    """The table's gradient, ``[num_rows, D]`` in ``dtype``: one launch
+    (the plan's sort, then the kernels); see
+    ``csrc/embedding_bag_backward.cu``."""
+    name = "embedding_bag_backward"
+    _cuda.require_cuda(name, grad_out, indices, offsets)
+    if mode not in MODES:
+        raise ValueError(f"{name}: mode must be 'sum' or 'mean', got "
+                         f"{mode!r}")
+    if grad_out.dim() != 2 or grad_out.dtype != torch.float32 or \
+            dtype not in _BF16:
+        raise TypeError(f"{name}: grad_out must be float32 [B, D] and the "
+                        f"table float32 or bfloat16")
+    if indices.dtype != torch.int32 or offsets.dtype != torch.int32 or \
+            indices.dim() != 1 or offsets.dim() != 1 or \
+            offsets.shape[0] != grad_out.shape[0] + 1:
+        raise TypeError(f"{name}: indices must be int32[N] and offsets "
+                        f"int32[B + 1]")
+    B, D = grad_out.shape
+    R = int(num_rows)
+    if R >= 2**31 - 1:
+        raise ValueError(f"{name}: {R} rows do not fit int32 row keys")
+    dev = grad_out.device
+    out = torch.empty((R, D), dtype=dtype, device=dev)
+    if R == 0 or D == 0:
+        return out
+    n = indices.shape[0]
+    key, perm = sort_positions(indices, offsets, R)
+    plan = backward_plan(D, grad_out.data_ptr(), n)
+    bag_of = torch.empty(n, dtype=torch.int32, device=dev)
+    head = torch.empty(plan.n_chunks * D, dtype=torch.float32, device=dev)
+    tail = torch.empty_like(head)
+    flags = torch.empty(plan.n_chunks, dtype=torch.uint8, device=dev)
+    embedding_bag_backward.launches += 1
+    err = _cuda.lib().embedding_bag_backward_launch(
+        grad_out.data_ptr(), B, D, offsets.data_ptr(), key.data_ptr(),
+        perm.data_ptr(), n, R, MODES[mode], _BF16[dtype], plan.vec,
+        plan.lanes, plan.grid, bag_of.data_ptr(), head.data_ptr(),
+        tail.data_ptr(), flags.data_ptr(), out.data_ptr(),
+        _cuda.sm_count(dev), _cuda.stream_ptr(dev))
+    _cuda.check(err, name)
+    return out
+
+
+embedding_bag_backward.launches = 0

@@ -13,10 +13,17 @@ inputs' index bounds are asserted first, then the call is routed by
 device as above (a CUDA tensor launches, and counts, the kernel), then
 its output is checked for NaN.  A failed check raises
 ``SanitizerError``; a call that fails the bounds launches nothing.
+
+``embedding_bag`` is differentiable in its table on both devices: on the
+CPU through autograd over the plain version, on CUDA through
+:class:`_BagFunction`, whose backward is the hand-written
+``embedding_bag_backward`` kernel.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.analysis import sanitize
 from repro_torch.kernels import bulk_append as _ba
@@ -34,6 +41,7 @@ KERNELS = {
     "scored_intersect_batched": _si.scored_intersect_batched,
     "paged_attention": _pa.paged_attention,
     "embedding_bag": _eb.embedding_bag,
+    "embedding_bag_backward": _eb.embedding_bag_backward,
 }
 
 
@@ -116,14 +124,49 @@ def paged_attention(q, k_heap, v_heap, page_table, lengths):
     return ref.paged_attention_ref(q, k_heap, v_heap, page_table, lengths)
 
 
+class _BagFunction(torch.autograd.Function):
+    """The CUDA bag with its table's gradient: forward
+    ``embedding_bag``, backward ``embedding_bag_backward`` (both
+    kernels; the indices and offsets get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, offsets, mode):
+        ctx.save_for_backward(indices, offsets)
+        ctx.mode, ctx.rows, ctx.dtype = mode, table.shape[0], table.dtype
+        return _eb.embedding_bag(table, indices, offsets, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        indices, offsets = ctx.saved_tensors
+        d_table = _eb.embedding_bag_backward(
+            grad.contiguous(), indices, offsets, ctx.mode, ctx.rows,
+            ctx.dtype)
+        return d_table, None, None, None
+
+
 def embedding_bag(table, indices, offsets, mode: str = "sum"):
     """CSR bags of ``table`` rows (int32 ``indices``, int32[B+1]
     ``offsets``; ids clipped into the table): fp32 [B, D] sums, or means
-    with ``mode="mean"``."""
+    with ``mode="mean"``; differentiable in ``table``."""
     if _on_cuda("embedding_bag", table):
-        return _eb.embedding_bag(table, indices.contiguous(),
-                                 offsets.contiguous(), mode)
+        indices, offsets = indices.contiguous(), offsets.contiguous()
+        if table.requires_grad and torch.is_grad_enabled():
+            return _BagFunction.apply(table, indices, offsets, mode)
+        return _eb.embedding_bag(table, indices, offsets, mode)
     return ref.embedding_bag_ref(table, indices, offsets, mode)
+
+
+def embedding_bag_backward(grad_out, indices, offsets, mode: str,
+                           num_rows: int, dtype):
+    """The table's gradient of :func:`embedding_bag` (``[num_rows, D]``
+    in ``dtype``) for ``grad_out`` fp32 [B, D]; the kernel on CUDA, the
+    plain version on the CPU."""
+    if _on_cuda("embedding_bag_backward", grad_out):
+        return _eb.embedding_bag_backward(
+            grad_out.contiguous(), indices.contiguous(),
+            offsets.contiguous(), mode, num_rows, dtype)
+    return ref.embedding_bag_backward_ref(grad_out, indices, offsets, mode,
+                                          num_rows, dtype)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -137,5 +180,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["intersect_mask", "segment_intersect_mask",
            "segment_intersect_mask_batched", "scored_intersect_batched",
-           "bulk_append", "paged_attention", "embedding_bag", "ref",
+           "bulk_append", "paged_attention", "embedding_bag",
+           "embedding_bag_backward", "ref",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -260,3 +260,35 @@ def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
         cnt = (ends - offsets[:-1].long()).clamp(min=1)
         out = out / cnt.float()[:, None]
     return out
+
+
+def embedding_bag_backward_ref(grad_out, indices, offsets, mode: str,
+                               num_rows: int, dtype):
+    """Gradient of :func:`embedding_bag_ref` with respect to its table:
+    position j of bag b adds ``grad_out[b]`` (``mode="mean"``: divided by
+    max(len_b, 1)) to row ``clip(indices[j], 0, R-1)``; positions outside
+    ``[offsets[0], offsets[B])`` add nothing.
+
+    grad_out: fp32 [B, D]; indices, offsets: int32[N], int32[B+1] ->
+    ``[num_rows, D]`` in ``dtype``, dense (untouched rows zero), summed
+    in fp32 in position order (``index_add_`` into zeros; on CUDA its
+    atomics take any order) and cast once.  A row with one contribution
+    is ``0.0 + g``: the kernel's bits."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag_backward: mode must be 'sum' or "
+                         f"'mean', got {mode!r}")
+    B = offsets.shape[0] - 1
+    dev = grad_out.device
+    pos = torch.arange(indices.shape[0], device=dev)
+    ends = offsets[1:].long()
+    seg = torch.searchsorted(ends, pos, right=True)
+    inside = (pos >= offsets[0].long()) & (pos < offsets[B].long())
+    g = grad_out.float()
+    if mode == "mean":
+        cnt = (ends - offsets[:-1].long()).clamp(min=1)
+        g = g / cnt.float()[:, None]
+    rows = indices.long().clamp(0, num_rows - 1)
+    out = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float32,
+                      device=dev)
+    out.index_add_(0, rows[inside], g[seg[inside]])
+    return out.to(dtype)

@@ -12,9 +12,12 @@ the table's dtype, as the reference's ``jnp.take`` returns it (exact:
 the values came from that dtype).
 
 There is one device, so the reference's sharding constraints are gone;
-the ``*_param_specs`` helpers and ``bce_loss`` wait for the training
-slice (ROADMAP.md Queue 1 item 12).  DIEN's two ``lax.scan``s are Python
-loops over T with the same masking.  JAX promotes a mixed-dtype product
+the ``*_param_specs`` helpers wait for ROADMAP.md Queue 1 item 12 part
+6.  The forwards train as they are: ``ops.embedding_bag`` is
+differentiable in the table (on the card through the
+``embedding_bag_backward`` kernel), and :func:`bce_loss` is the
+reference's.  DIEN's two ``lax.scan``s are Python loops over T with the
+same masking.  JAX promotes a mixed-dtype product
 (fp32 activations @ bf16 weights -> fp32) where torch raises, so every
 product here casts both operands to the promoted dtype (:func:`_dot`).
 """
@@ -336,6 +339,20 @@ def retrieval_scores(table, user_vec, cand_ids):
                              _single_rows(cand_ids.shape[0], table.device))
     d = min(user_vec.shape[-1], cand.shape[-1])
     return cand[:, :d] @ user_vec[:d].float()
+
+
+# ---------------------------------------------------------------------------
+# Shared loss
+# ---------------------------------------------------------------------------
+def bce_loss(logits, labels):
+    """Mean binary cross-entropy of fp32 logits, the stable form.  At a
+    logit of exactly 0 the gradient is JAX's: ``maximum`` splits it in
+    half and ``|x|`` counts as x (torch's ``abs`` would give 0)."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    absl = torch.where(logits >= 0, logits, -logits)
+    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
+                      - logits * labels + torch.log1p(torch.exp(-absl)))
 
 
 FORWARDS = {

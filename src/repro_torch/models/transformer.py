@@ -13,16 +13,21 @@ with a per-(token, head) fp32 scale.  MoE layers dispatch through
 :mod:`repro_torch.models.moe`.
 
 There is one device, so the reference's sharding constraints and specs
-are gone (ROADMAP.md Queue 1 item 12.6); ``remat`` matters only to
-training, which is not ported (item 12.3).  The decode cache is updated
-in place.  The dense decode is the oracle the paged decode of
-:mod:`repro_torch.paged.serve_model` is held against.
+are gone (ROADMAP.md Queue 1 item 12.6).  With ``cfg.remat``, autograd
+on and parameters that need a gradient, ``lm_forward`` runs each block
+under ``torch.utils.checkpoint.checkpoint`` (the reference's
+``jax.checkpoint``), so a block's attention logits are recomputed in the
+backward instead of kept; it takes each stack's layers by one
+``unbind``, so the backward stacks a leaf's layer gradients once.  The
+decode cache is updated in place.  The dense decode is the oracle the
+paged decode of :mod:`repro_torch.paged.serve_model` is held against.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
@@ -128,11 +133,32 @@ def _init_tree(cfg: LMConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def layer_params(stack: dict, i: int, dtype: torch.dtype) -> dict:
-    """Layer ``i`` of a stacked tree, every leaf cast to ``dtype`` (the
+def unbind_layers(stack: dict) -> list:
+    """Every layer of a stacked tree, taken by one ``unbind`` per leaf:
+    its backward stacks the layers' gradients once, where indexing
+    ``v[i]`` would add a full ``[L, ...]`` gradient per layer."""
+    parts = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stack.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: parts[k][i] for k in stack} for i in range(n)]
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def cast_layer(layer: dict, dtype: torch.dtype) -> dict:
+    """One layer of ``unbind_layers``, every leaf cast to ``dtype`` (the
     MoE router too, as the reference's per-layer cast does)."""
-    return {k: layer_params(v, i, dtype) if isinstance(v, dict)
-            else v[i].to(dtype) for k, v in stack.items()}
+    return {k: cast_layer(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in layer.items()}
+
+
+def _unbind_stacks(params, sched) -> dict:
+    """Each stack the schedule names, by ``unbind_layers``."""
+    return {name: unbind_layers(params[name])
+            for name in dict.fromkeys(st for st, _, _ in sched)}
 
 
 def _schedule(cfg: LMConfig):
@@ -178,7 +204,11 @@ def chunked_attention(q, k, v, *, window: int, q_chunk: int,
     kt = k.permute(0, 2, 3, 1).contiguous()          # [B, Hkv, D, T]
     vt = v.permute(0, 2, 1, 3).contiguous()          # [B, Hkv, T, D]
     k_pos = torch.arange(T, device=q.device)
-    out = torch.empty_like(q)
+    # under autograd nothing is written in place into a view: autograd
+    # would copy the whole base for each such write in the backward
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    out = [] if grad else torch.empty_like(q)
     for c in range(S // q_chunk):
         s0 = c * q_chunk
         # [B, qc, Hkv, G, D] -> [B, Hkv, G * qc, D]
@@ -189,12 +219,19 @@ def chunked_attention(q, k, v, *, window: int, q_chunk: int,
         q_pos = q_offset + s0 + torch.arange(q_chunk, device=q.device)
         m = (k_pos[None, :] <= q_pos[:, None]) & \
             (k_pos[None, :] > q_pos[:, None] - span)
-        logits.masked_fill_(~m, -1e30)
+        if grad:          # one kernel each way (masked_fill would clone)
+            logits = torch.where(m, logits, -1e30)
+        else:
+            logits.masked_fill_(~m, -1e30)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         o = probs.view(B, Hkv, G * q_chunk, T) @ vt   # [B, Hkv, G*qc, D]
-        out[:, s0:s0 + q_chunk] = o.view(B, Hkv, G, q_chunk, D).permute(
-            0, 3, 1, 2, 4).reshape(B, q_chunk, Hq, D)
-    return out
+        o = o.view(B, Hkv, G, q_chunk, D).permute(0, 3, 1, 2, 4).reshape(
+            B, q_chunk, Hq, D)
+        if grad:
+            out.append(o)
+        else:
+            out[:, s0:s0 + q_chunk] = o
+    return torch.cat(out, dim=1) if grad else out
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +282,10 @@ def block_forward(p, x, cfg: LMConfig, *, window: int, positions,
 def _embed(params, tokens, cfg: LMConfig):
     cdt = dtype_of(cfg.compute_dtype)
     B, S = tokens.shape
-    x = params["embed"].to(cdt)[tokens.long()]
+    # index_select, not ``[tokens]``: its gradient (``index_add_``) sums
+    # in a fixed order on the CPU, and on CUDA under deterministic mode
+    x = torch.index_select(params["embed"].to(cdt), 0,
+                           tokens.reshape(-1).long()).reshape(B, S, -1)
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions, cdt
 
@@ -254,10 +294,18 @@ def lm_forward(params, tokens, cfg: LMConfig, q_chunk: int = 512):
     """Logits [B, S, vocab] in the compute dtype.  tokens: int [B, S]."""
     x, positions, cdt = _embed(params, tokens, cfg)
     win = cfg.sliding_window or 0
-    for stack, i, local in _schedule(cfg):
-        p = layer_params(params[stack], i, cdt)
-        x = block_forward(p, x, cfg, window=win if local else 0,
-                          positions=positions, q_chunk=q_chunk)
+    sched = _schedule(cfg)
+    layers = _unbind_stacks(params, sched)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in _leaves(params))
+    for stack, i, local in sched:
+        kw = dict(cfg=cfg, window=win if local else 0, positions=positions,
+                  q_chunk=q_chunk)
+        p = cast_layer(layers[stack][i], cdt)
+        if remat:
+            x = checkpoint(block_forward, p, x, use_reentrant=False, **kw)
+        else:
+            x = block_forward(p, x, **kw)
     return _head(params, cfg, x)
 
 
@@ -289,8 +337,10 @@ def lm_prefill(params, tokens, cfg: LMConfig, q_chunk: int = 512):
         W = min(cfg.sliding_window, S)
         kl = x.new_empty((n_loc, B, W) + shape[2:])
         vl = torch.empty_like(kl)
-    for stack, i, local in _schedule(cfg):
-        p = layer_params(params[stack], i, cdt)
+    sched = _schedule(cfg)
+    layers = _unbind_stacks(params, sched)
+    for stack, i, local in sched:
+        p = cast_layer(layers[stack][i], cdt)
         x, (k, v) = block_forward(
             p, x, cfg, window=cfg.sliding_window if local else 0,
             positions=positions, q_chunk=q_chunk, return_kv=True,
@@ -423,8 +473,10 @@ def lm_decode_step(params, cache: DecodeCache, token, pos: int,
     cdt = dtype_of(cfg.compute_dtype)
     pos = int(pos)
     x = params["embed"].to(cdt)[token.long()]
-    for stack, i, local in _schedule(cfg):
-        p = layer_params(params[stack], i, cdt)
+    sched = _schedule(cfg)
+    layers = _unbind_stacks(params, sched)
+    for stack, i, local in sched:
+        p = cast_layer(layers[stack][i], cdt)
         names = ("k_loc", "v_loc", "k_loc_sc", "v_loc_sc") if local else \
             ("k", "v", "k_sc", "v_sc")
         kv = tuple(None if getattr(cache, n) is None else getattr(cache, n)[i]

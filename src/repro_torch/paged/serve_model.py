@@ -88,8 +88,8 @@ def decode_step(server: PagedServer, params, state: P.PagedKVState,
 
     x = params["embed"].to(cdt)[tokens.long()[:, None]]   # [B, 1, d]
     G = cfg.n_heads // cfg.n_kv_heads
-    for i in range(cfg.n_layers):
-        p = T.layer_params(params["layers"], i, cdt)
+    for i, layer in enumerate(T.unbind_layers(params["layers"])):
+        p = T.cast_layer(layer, cdt)
         q, k, v = _layer_qkv(p, x, cfg, positions)
         P.write_layer_kv(state, i, addrs, k[:, 0], v[:, 0], index=index)
         qh = q.reshape(B, cfg.n_kv_heads, G, cfg.d_head)

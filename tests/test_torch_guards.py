@@ -30,6 +30,7 @@ from repro_torch.data import lm_data as tD
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels.segment_intersect import decode_packed
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.models import recsys as tR
 from repro_torch.models import transformer as tT
 from repro_torch.paged import kv_cache as tkv
@@ -71,7 +72,8 @@ def test_guard_sees_every_port_module():
                  "tokenizer.py", "sharded_index.py", "collectives.py",
                  "moe.py", "lm_data.py", "tinyllama_1b.py", "gemma3_12b.py",
                  "deepseek_coder_33b.py", "qwen2_moe_a2_7b.py",
-                 "grok_1_314b.py"):
+                 "grok_1_314b.py", "optimizer.py", "checkpoint.py",
+                 "compression.py", "elastic.py", "tree.py", "train.py"):
         assert must in names
 
 
@@ -88,7 +90,8 @@ def test_entry_points_default_to_cuda():
                tS.make_recsys_retrieval_step, tS.init_params_for,
                tR.field_offsets, tconv.recsys_params_from_numpy,
                ShardedLifecycleEngine.__init__, tsh.make_doc_mesh,
-               tsp.init_sharded_state, tD.make_batch_fn, tD.batches):
+               tsp.init_sharded_state, tD.make_batch_fn, tD.batches,
+               tconv.opt_state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
@@ -127,7 +130,8 @@ def test_recsys_entry_points_never_fall_back_to_the_cpu():
     """Asked for the card (the default) without CUDA, the recsys entry
     points raise; the kernel's wrapper raises on CPU tensors rather than
     run the plain version, and on a wrong dtype or a non-contiguous
-    table; the train steps raise naming their ROADMAP item."""
+    table; so does the bag's backward wrapper; only the GNN train step
+    still raises naming its ROADMAP item."""
     cfg = treg.reduced_config("dcn-v2")
     entry = treg.get("dcn-v2")
     if not torch.backends.cuda.is_built():
@@ -143,19 +147,25 @@ def test_recsys_entry_points_never_fall_back_to_the_cpu():
         teb.embedding_bag(table, idx, off)
     with pytest.raises(ValueError, match="CUDA|contiguous"):
         teb.embedding_bag(table.t(), idx, off)
-    for call in (tS.make_lm_train_step, tS.make_gnn_train_step,
-                 tS.make_recsys_train_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            call(cfg)
+    # the backward kernel's wrapper refuses CPU tensors too
+    with pytest.raises(ValueError, match="CUDA"):
+        teb.embedding_bag_backward(torch.zeros(2, 4), idx, off, "sum", 8,
+                                   torch.float32)
+    # only the GNN step (and SchNet) still wait for their ROADMAP item
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tS.make_gnn_train_step(cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         treg.get("schnet")
+    # the recsys train step runs where the parameters are
+    assert list(inspect.signature(tS.make_recsys_train_step).parameters) \
+        == ["cfg", "opt", "n_microbatches"]
 
 
-def test_lm_entry_points_never_fall_back_to_the_cpu():
+def test_lm_entry_points_never_fall_back_to_the_cpu(tmp_path):
     """Asked for the card (the default) without CUDA, the LM entry points
-    raise for every registry LM (dense, local/global, MoE); the prefill
-    and decode steps run where the parameters are; the LM train step
-    still names its ROADMAP item."""
+    raise for every registry LM (dense, local/global, MoE), and so does
+    the training launcher; the prefill, decode and train steps run where
+    the parameters are."""
     if not torch.backends.cuda.is_built():
         for arch in ("tinyllama-1.1b", "gemma3-12b", "qwen2-moe-a2.7b"):
             cfg = treg.reduced_config(arch)
@@ -166,10 +176,18 @@ def test_lm_entry_points_never_fall_back_to_the_cpu():
                              vocab=8, batch=1, seq_len=4))):
                 with pytest.raises((AssertionError, RuntimeError)):
                     call()
-    for fn in (tS.make_lm_prefill_step, tS.make_lm_decode_step):
+    for fn in (tS.make_lm_prefill_step, tS.make_lm_decode_step,
+               tS.make_lm_train_step, tS.make_recsys_train_step):
         assert "device" not in inspect.signature(fn).parameters
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tS.make_lm_train_step(treg.reduced_config("gemma3-12b"))
+    # the training launcher defaults to the card and raises without one
+    assert 'add_argument("--device", default="cuda")' in \
+        inspect.getsource(ttrain.main)
+    if not torch.backends.cuda.is_built():
+        with pytest.raises((AssertionError, RuntimeError)):
+            ttrain.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+        assert not list(tmp_path.iterdir())      # no checkpoint written
+        # its deterministic mode ends with the run
+        assert not torch.are_deterministic_algorithms_enabled()
 
 
 @pytest.mark.cuda
@@ -221,8 +239,9 @@ def test_lm_paths_on_the_card_match_the_cpu():
         assert qerr < 0.15, (arch, qerr)
         assert torch.equal(oq.argmax(-1), og.argmax(-1)), arch
     cfg = treg.reduced_config("qwen2-moe-a2.7b")
-    layer = tT.layer_params(tT.init_lm(cfg, seed=2, device="cuda")["layers"],
-                            0, torch.float32)["moe"]
+    layer = tT.cast_layer(tT.unbind_layers(
+        tT.init_lm(cfg, seed=2, device="cuda")["layers"])[0],
+        torch.float32)["moe"]
     x = torch.randn(3, 16, cfg.d_model, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
     y, m = tM.moe_ffn(x, layer, cfg)
@@ -230,6 +249,54 @@ def test_lm_paths_on_the_card_match_the_cpu():
         torch.testing.assert_close(tM._moe_ffn_tokens(x[g], layer, cfg)[0],
                                    y[g], rtol=1e-5, atol=1e-5)
     assert float(m["drop_fraction"]) == 0.0
+
+
+@pytest.mark.cuda
+def test_bag_gradient_on_the_card_matches_autograd():
+    """``table.grad`` through the CUDA bag (forward and backward kernels)
+    equals the plain version's autograd gradient on the CPU: bit for bit
+    on rows with one contribution, within 1e-5 of each row's summed
+    magnitudes elsewhere; bit-equal from run to run; one backward launch
+    a call; a bf16 table's gradient is the fp32 sum cast once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(4)
+    R, D, B = 300, 16, 200
+    for mode in ("sum", "mean"):
+        lens = rng.integers(0, 9, B)
+        off = np.concatenate([[2], 2 + np.cumsum(lens)]).astype(np.int32)
+        idx = (rng.zipf(1.3, int(off[-1]) + 3) % (R + 40) - 20
+               ).astype(np.int32)
+        g = rng.normal(size=(B, D)).astype(np.float32)
+        cpu = torch.as_tensor(rng.normal(size=(R, D)).astype(np.float32))
+        grads = []
+        for dev in ("cpu", "cuda", "cuda"):
+            t = cpu.detach().to(dev).requires_grad_(True)
+            ops.reset_launch_counts()
+            out = ops.embedding_bag(t, torch.as_tensor(idx, device=dev),
+                                    torch.as_tensor(off, device=dev), mode)
+            (out * torch.as_tensor(g, device=dev)).sum().backward()
+            if dev == "cuda":
+                assert ops.launch_counts()["embedding_bag_backward"] == 1
+            grads.append(t.grad.cpu())
+        want, got, again = grads
+        assert torch.equal(got, again)
+        pos = np.arange(idx.size)
+        inside = (pos >= off[0]) & (pos < off[-1])
+        rows = np.clip(idx, 0, R - 1)[inside]
+        single = torch.as_tensor(np.bincount(rows, minlength=R) == 1)
+        assert torch.equal(got[single], want[single])
+        mag = ref.embedding_bag_backward_ref(
+            torch.as_tensor(np.abs(g)), torch.as_tensor(idx),
+            torch.as_tensor(off), mode, R, torch.float32)
+        assert bool(((got - want).abs() <= 1e-5 * mag).all())
+        bf = ops.embedding_bag_backward(
+            torch.as_tensor(g, device="cuda"),
+            torch.as_tensor(idx, device="cuda"),
+            torch.as_tensor(off, device="cuda"), mode, R, torch.bfloat16)
+        assert bf.dtype == torch.bfloat16
+        assert torch.equal(bf.cpu()[single], want.to(torch.bfloat16)[single])
 
 
 @pytest.mark.cuda

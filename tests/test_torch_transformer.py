@@ -102,7 +102,8 @@ def test_block_forward_matches_reference(kv_keep):
     tcfg = treg.reduced_config("gemma3-12b")
     jp, tp = _pair(jcfg, tcfg, seed=1)
     jl = jax.tree.map(lambda a: a[0], jp["local_layers"])
-    tl = TT.layer_params(tp["local_layers"], 0, torch.float32)
+    tl = TT.cast_layer(TT.unbind_layers(tp["local_layers"])[0],
+                       torch.float32)
     x = np.random.default_rng(2).normal(size=(2, 24, 64)).astype(np.float32)
     pos = np.tile(np.arange(24), (2, 1))
     jx, (jk, jv) = JT.block_forward(
