@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (the streaming index, single-device and
 document-sharded, the paged-KV decoder server, recsys serving, the LMs'
-forward, prefill and decode, and training) on one GPU.
+forward, prefill and decode, training, and SchNet) on one GPU.
 
     python3 chip_smoke.py
 
@@ -157,10 +157,27 @@ Phases, in order (any failure raises and exits non-zero):
      (b)'s uninterrupted run, each step timed, one traced, the bag
      launches counted).
 
+  11. SchNet at its published widths (3 interactions, d_hidden 64, n_rbf
+     300, cutoff 10, fp32; no kernel of the repo is on this path: the
+     message passing is ``index_select`` and ``index_add_``), in
+     deterministic mode with TF32 off, random weights and data from seed
+     0: (a) forward, loss and one AdamW step on the card against the
+     port's CPU path at the reduced config (50 nodes, 200 edges) and at
+     full_graph_sm's shapes (2,708 nodes, 10,556 edges, d_feat 1,433);
+     (b) minibatch_lg: a Reddit-scale random graph (232,965 nodes x 492
+     = 114,618,780 edges) built with the card's sort, 1,024 seeds
+     sampled with fanout (15, 10) and padded to (180,224, 179,200),
+     d_feat 602; (c) molecule: 128 molecules of 30 atoms and 64 edges,
+     a readout a molecule; full_graph_sm too: 5 train steps each (the
+     last traced; s per step, edges/s, peak memory, idle share, top
+     ops); (d) a step repeated from the same state gives equal bits;
+     then minibatch_lg's steps timed outside deterministic mode.
+
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
 and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9,
-``--train-only`` phases 1 and 10 (short rehearsals);
+``--train-only`` phases 1 and 10, ``--gnn-only`` phases 1 and 11 (short
+rehearsals);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
@@ -219,9 +236,11 @@ from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.launch import time_segment_intersect as tsg  # noqa: E402
+from repro_torch.data import graph_sampler as gsamp  # noqa: E402
 from repro_torch.data import lm_data as tlm_data  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import recsys as rmodels  # noqa: E402
+from repro_torch.models import schnet as gsch  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.paged import kv_cache as kv  # noqa: E402
 from repro_torch.paged import serve_model as sm  # noqa: E402
@@ -3688,14 +3707,15 @@ def dcn_train(tmp: str, seed: int) -> dict:
     return out
 
 
-def _allclose_tree(name, got, want, leaf_scale: bool) -> float:
+def _allclose_tree(name, got, want, leaf_scale: bool,
+                   tol: float = TRAIN_RTOL) -> float:
     """Leaves of ``got`` (card) against ``want`` (CPU): within
-    ``TRAIN_RTOL`` relative, absolute ``TRAIN_RTOL`` (``leaf_scale``:
-    times the leaf's largest |want|); returns the worst |d|."""
+    ``TRAIN_RTOL`` relative, absolute ``tol`` (``leaf_scale``: times the
+    leaf's largest |want|); returns the worst |d|."""
     worst = 0.0
     for (path, g), w in zip(ttree.items_with_path(got), ttree.leaves(want)):
         g, w = g.cpu().float(), w.float()
-        atol = TRAIN_RTOL * (float(w.abs().max()) if leaf_scale else 1.0)
+        atol = tol * (float(w.abs().max()) if leaf_scale else 1.0)
         d = (g - w).abs()
         if bool((d > atol + TRAIN_RTOL * w.abs()).any()):
             raise AssertionError(f"{name} {'/'.join(path)}: max |d| "
@@ -3869,6 +3889,299 @@ def phase_train(seed: int) -> dict:
     return row, res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: SchNet and the GNN train step
+# ---------------------------------------------------------------------------
+GNN_TOL = 1e-5        # card vs CPU: outputs, loss and parameters (relative
+                      # and absolute)
+GNN_MOMENT_TOL = 1e-4  # card vs CPU moments: times the leaf's largest (the
+                      # E messages and N node outputs sum in other orders)
+GNN_EPS = 1e-6        # AdamW's eps in (a): at the default 1e-8 Adam divides
+                      # the gradients' summation noise by itself where they
+                      # reach 1e-9 (tests/test_torch_gnn_steps.py)
+GNN_STEPS = 5         # train steps of each cell, the last traced
+REDDIT_NODES, REDDIT_DEGREE = 232_965, 492   # minibatch_lg's graph:
+                      # random_graph's n x avg_degree = 114,618,780 edges
+                      # (the shape's 114,615,892 is not a multiple of n)
+MOLECULE_ATOMS = (1, 6, 7, 8, 9)   # H, C, N, O, F: QM9's elements
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the phase: the
+    scatter-add (``index_add_``) and the gather's gradient take their
+    sorted, atomic-free CUDA paths.  cuBLAS's fixed workspace
+    (``CUBLAS_WORKSPACE_CONFIG``) can only be set before cuBLAS starts,
+    which in this script is phase 5, so its check only warns; the GEMMs
+    run on one stream, and (d) checks the bits."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def gnn_graph(rng, n_nodes: int, n_edges: int, d_feat: int) -> dict:
+    """A featureful graph on the CPU: uniform edges, normal features,
+    edge distances uniform in [0, 10), one graph and one target."""
+    return dict(
+        node_feat=torch.as_tensor(rng.normal(size=(n_nodes, d_feat)),
+                                  dtype=torch.float32),
+        src=torch.as_tensor(rng.integers(0, n_nodes, n_edges),
+                            dtype=torch.int32),
+        dst=torch.as_tensor(rng.integers(0, n_nodes, n_edges),
+                            dtype=torch.int32),
+        edge_dist=torch.as_tensor(rng.uniform(0, 10, n_edges),
+                                  dtype=torch.float32),
+        graph_id=torch.zeros(n_nodes, dtype=torch.int32),
+        targets=torch.as_tensor(rng.normal(size=1), dtype=torch.float32))
+
+
+def gnn_card_vs_cpu(name: str, cfg, batch: dict, seed: int) -> dict:
+    """(a) The same weights (drawn on the CPU) and graph on the card and
+    on the port's CPU path: per-node outputs, readout and loss within
+    ``GNN_TOL``, then one AdamW step (eps ``GNN_EPS``): loss and
+    parameters within ``GNN_TOL``, moments within ``GNN_MOMENT_TOL`` of
+    each leaf's largest."""
+    d_feat = batch["node_feat"].shape[1]
+    cpu = gsch.init_schnet(cfg, torch.Generator().manual_seed(seed), d_feat,
+                           device="cpu")
+    dev = ttree.tree_map(lambda t: t.to("cuda"), cpu)
+    dbatch = {k: v.to("cuda") for k, v in batch.items()}
+    out = {}
+    fwd = (rsteps.make_gnn_forward(cfg, device="cuda")(dev, dbatch),
+           rsteps.make_gnn_forward(cfg, device="cpu")(cpu, batch))
+    for what, g, c in zip(("nodes", "readout"), *fwd):
+        d = float((g.cpu() - c).abs().max())
+        if not torch.allclose(g.cpu(), c, rtol=GNN_TOL, atol=GNN_TOL):
+            raise AssertionError(f"schnet {name} {what}: card vs CPU max |d|"
+                                 f" {d:.3g}")
+        out[f"{what}_max_d"] = d
+    opt = toptim.AdamW(eps=GNN_EPS)
+    step = rsteps.make_gnn_train_step(cfg, opt)
+    pg, sg, mg = step(dev, opt.init(dev), dbatch)
+    pc, sc, mc = step(cpu, opt.init(cpu), batch)
+    torch.cuda.synchronize()
+    lg, lc = float(mg["loss"]), float(mc["loss"])
+    if not (np.isfinite(lg) and abs(lg - lc) <= GNN_TOL * abs(lc) + GNN_TOL):
+        raise AssertionError(f"schnet {name} loss: card {lg!r}, CPU {lc!r}")
+    out.update(loss=(lg, lc),
+               params_max_d=_allclose_tree(f"schnet {name} params", pg, pc,
+                                           False, GNN_TOL),
+               mu_max_d=_allclose_tree(f"schnet {name} mu", sg.mu, sc.mu,
+                                       True, GNN_MOMENT_TOL),
+               nu_max_d=_allclose_tree(f"schnet {name} nu", sg.nu, sc.nu,
+                                       True, GNN_MOMENT_TOL))
+    return out
+
+
+def gnn_train(name: str, cfg, shape: str, batch: dict, n_graphs: int,
+              seed: int, n_real_edges: int) -> dict:
+    """``GNN_STEPS`` AdamW steps of ``make_gnn_train_step`` at ``cfg`` on
+    ``batch`` (tensors on the card), each timed, the last traced; the
+    loss finite and the readout of the batch's graphs; then (d) one step
+    repeated from the same state gives equal bits."""
+    entry = registry.get("schnet")
+    params = rsteps.init_params_for(entry, cfg, seed=seed,
+                                    shape_spec=registry.get_shape("schnet",
+                                                                  shape),
+                                    device="cuda")
+    opt = toptim.AdamW()
+    state = opt.init(params)
+    step = rsteps.make_gnn_train_step(cfg, opt, n_graphs=n_graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(GNN_STEPS):
+        if i == GNN_STEPS - 1:
+            prof = device_profile(lambda: step(params, state, batch))
+            (params, state, m), dt = prof.pop("out"), prof["wall_ms"] / 1e3
+        else:
+            (params, state, m), dt = _timed(lambda: step(params, state,
+                                                         batch))
+        times.append(dt)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    _, energy = rsteps.make_gnn_forward(cfg, n_graphs, "cuda")(params,
+                                                               batch)
+    if not all(np.isfinite(losses)) or energy.shape != (n_graphs, 1) or \
+            not bool(torch.isfinite(energy).all()):
+        raise AssertionError(f"schnet {name}: losses {losses}, readout "
+                             f"{tuple(energy.shape)}")
+    a, b = step(params, state, batch), step(params, state, batch)
+    if not _bit_equal(a, b):
+        raise AssertionError(f"schnet {name}: a step repeated from the same "
+                             f"state differs")
+    del a, b
+    step_s = float(np.median(times[1:-1]))
+    E, N = batch["src"].shape[0], batch["graph_id"].shape[0]
+    out = dict(nodes=N, edges=E, real_edges=n_real_edges, step_s=times,
+               median_s=step_s, edges_per_s=E / step_s,
+               real_edges_per_s=n_real_edges / step_s, peak_bytes=peak,
+               idle=prof["idle"], traced_ms=prof["wall_ms"],
+               busy_ms=prof["busy_ms"], events=prof["events"],
+               top=top_ops(prof, 3), losses=losses, repeat_bit_equal=True)
+    log(f"schnet {name} training ({cfg.n_interactions} interactions, "
+        f"d_hidden {cfg.d_hidden}, n_rbf {cfg.n_rbf}, {cfg.param_dtype}; "
+        f"N {N}, E {E} ({n_real_edges} real), {n_graphs} graphs): steps "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (the last traced),"
+        f" median {step_s * 1e3:.2f} ms, {E / step_s:.4g} edges/s "
+        f"({n_real_edges / step_s:.4g} real); peak {peak / 2**30:.2f} GiB; "
+        f"traced step {prof['wall_ms']:.2f} ms wall, {prof['busy_ms']:.2f} ms"
+        f" device, idle {prof['idle']:.3f}, {prof['events']} device events; "
+        f"top ops {out['top']}; loss {', '.join(f'{x:.5g}' for x in losses)}"
+        f"; a step repeated from the same state bit-equal")
+    del params, state
+    return out
+
+
+def gnn_atomic_steps(cfg, batch: dict, seed: int) -> list:
+    """minibatch_lg's step outside deterministic mode (the scatters'
+    atomic CUDA path, not bit-reproducible): what determinism costs."""
+    params = rsteps.init_params_for(
+        registry.get("schnet"), cfg, seed=seed,
+        shape_spec=registry.get_shape("schnet", "minibatch_lg"),
+        device="cuda")
+    opt = toptim.AdamW()
+    state = opt.init(params)
+    step = rsteps.make_gnn_train_step(cfg, opt)
+    times = []
+    for _ in range(GNN_STEPS):
+        (params, state, m), dt = _timed(lambda: step(params, state, batch))
+        times.append(dt)
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"schnet minibatch_lg (atomic): loss {m}")
+    log(f"schnet minibatch_lg outside deterministic mode: steps "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms")
+    return times
+
+
+def reddit_minibatch(seed: int):
+    """(b) A Reddit-scale graph (``REDDIT_NODES`` x ``REDDIT_DEGREE``
+    uniform edges from ``seed``) built on the card's sort route, its sort
+    first held bit-equal to numpy's on a 1.2M-edge graph; 1,024 seeds
+    sampled with fanout (15, 10), padded to minibatch_lg's (180,224,
+    179,200); each node's 602 features read from a feature table on the
+    card, the pad rows zero; edge distances uniform in [0, 10)."""
+    spec = registry.get_shape("schnet", "minibatch_lg")
+    pn, pe = registry._gnn_sample_sizes(spec)
+    small = (gsamp.random_graph(24_000, 50, seed=seed, device="cuda"),
+             gsamp.random_graph(24_000, 50, seed=seed))
+    if not (np.array_equal(small[0].indptr, small[1].indptr) and
+            np.array_equal(small[0].indices, small[1].indices)):
+        raise AssertionError("graph sampler: the card's CSR differs from "
+                             "numpy's")
+    del small
+    t0 = time.perf_counter()
+    g = gsamp.random_graph(REDDIT_NODES, REDDIT_DEGREE, seed=seed,
+                           device="cuda")
+    build_s = time.perf_counter() - t0
+    n_edges = REDDIT_NODES * REDDIT_DEGREE
+    if g.indptr[-1] != n_edges or g.indices.shape != (n_edges,) or \
+            bool((np.diff(g.indptr) < 0).any()):
+        raise AssertionError("graph sampler: a malformed CSR")
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    seeds = rng.choice(REDDIT_NODES, spec.extra("batch_nodes"),
+                       replace=False)
+    sub = gsamp.sample_subgraph(g, seeds, spec.extra("fanout"), rng,
+                                pad_nodes=pn, pad_edges=pe)
+    sample_s = time.perf_counter() - t0
+    del g
+    n, e = sub["n_nodes"], sub["n_edges"]
+    ids = sub["node_ids"]
+    if len(ids) != pn or len(sub["src"]) != pe or \
+            len(np.unique(ids[:n])) != n or (sub["dst"][:e] >= n).any():
+        raise AssertionError(f"graph sampler: a malformed subgraph ({n} "
+                             f"nodes, {e} edges)")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d_feat = spec.extra("d_feat")
+    table = torch.randn(REDDIT_NODES, d_feat, generator=gen, device="cuda")
+    idx = torch.as_tensor(ids, device="cuda")
+    feat = table.index_select(0, idx.clamp(min=0))
+    feat[n:] = 0
+    del table
+    batch = dict(node_feat=feat,
+                 src=torch.as_tensor(sub["src"], device="cuda"),
+                 dst=torch.as_tensor(sub["dst"], device="cuda"),
+                 edge_dist=10 * torch.rand(pe, generator=gen, device="cuda"),
+                 graph_id=torch.zeros(pn, dtype=torch.int32, device="cuda"),
+                 targets=torch.randn(1, generator=gen, device="cuda"))
+    log(f"graph sampler: Reddit-scale graph ({REDDIT_NODES} nodes, "
+        f"{n_edges} edges) built in {build_s:.2f} s with the card's sort "
+        f"(equal to numpy's at 24,000 x 50); {len(seeds)} seeds, fanout "
+        f"{spec.extra('fanout')}: {n} nodes, {e} edges (pads {pn}, {pe}) in "
+        f"{sample_s:.2f} s")
+    return batch, dict(build_s=build_s, sample_s=sample_s, nodes=n,
+                       edges=e, graph_edges=n_edges)
+
+
+def molecule_batch(seed: int):
+    """(c) molecule's 128 molecules of 30 atoms and 64 edges each, atom
+    types from QM9's elements, edges inside each molecule with distances
+    uniform in [0.8, 5) (bond to non-bonded range, within the cutoff), a
+    target a molecule, on the card."""
+    spec = registry.get_shape("schnet", "molecule")
+    B, n, e = spec.extra("batch"), spec.extra("n_nodes"), spec.extra(
+        "n_edges")
+    rng = np.random.default_rng(seed)
+    base = np.repeat(np.arange(B) * n, e)
+    batch = dict(
+        atom_type=rng.choice(MOLECULE_ATOMS, B * n),
+        src=rng.integers(0, n, B * e) + base,
+        dst=rng.integers(0, n, B * e) + base,
+        edge_dist=rng.uniform(0.8, 5.0, B * e),
+        graph_id=np.repeat(np.arange(B), n),
+        targets=rng.normal(size=B))
+    return {k: torch.as_tensor(v, dtype=torch.float32 if v.dtype.kind == "f"
+                               else torch.int32, device="cuda")
+            for k, v in batch.items()}, B
+
+
+def phase_gnn(seed: int) -> dict:
+    """Phase 11 (runs in deterministic mode with TF32 off)."""
+    _lm_free()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    full = registry.get("schnet").config
+    res = {}
+    with deterministic():
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed)
+        spec = registry.get_shape("schnet", "full_graph_sm")
+        sm = gnn_graph(rng, spec.extra("n_nodes"), spec.extra("n_edges"),
+                       spec.extra("d_feat"))
+        res["card_vs_cpu"] = {
+            "reduced": gnn_card_vs_cpu("reduced (50 nodes, 200 edges)",
+                                       registry.reduced_config("schnet"),
+                                       gnn_graph(rng, 50, 200, 16), seed),
+            "full_graph_sm": gnn_card_vs_cpu("full_graph_sm", full, sm,
+                                             seed)}
+        log("schnet card vs CPU (one AdamW step, TF32 off): " +
+            json.dumps(res["card_vs_cpu"]))
+        res["card_vs_cpu_s"] = time.perf_counter() - t0
+        sm = {k: v.to("cuda") for k, v in sm.items()}
+        res["full_graph_sm"] = gnn_train("full_graph_sm", full,
+                                         "full_graph_sm", sm, 1, seed,
+                                         spec.extra("n_edges"))
+        del sm
+        batch, res["sampler"] = reddit_minibatch(seed)
+        res["minibatch_lg"] = gnn_train("minibatch_lg", full, "minibatch_lg",
+                                        batch, 1, seed,
+                                        res["sampler"]["edges"])
+        mol, B = molecule_batch(seed)
+        res["molecule"] = gnn_train("molecule", full, "molecule", mol, B,
+                                    seed, mol["src"].shape[0])
+        del mol
+    res["minibatch_lg"]["atomic_step_s"] = gnn_atomic_steps(full, batch,
+                                                            seed)
+    del batch
+    _lm_free()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segment-log2", type=int, default=23,
@@ -3886,6 +4199,8 @@ def main(argv=None) -> int:
                          "(phase 9)")
     ap.add_argument("--train-only", action="store_true",
                     help="run only the build and training (phase 10)")
+    ap.add_argument("--gnn-only", action="store_true",
+                    help="run only the build and SchNet (phase 11)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the build and the sharded index (phase "
                          "8, with its own brute force)")
@@ -3925,10 +4240,10 @@ def main(argv=None) -> int:
         phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
         del docs
     elif not (args.paged_only or args.recsys_only or args.lm_only or
-              args.train_only):
+              args.train_only or args.gnn_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
     only = (args.serve_only or args.sharded_only or args.lm_only or
-            args.train_only)
+            args.train_only or args.gnn_only)
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -3947,18 +4262,23 @@ def main(argv=None) -> int:
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or args.train_only or saving):
+            args.sharded_only or args.train_only or args.gnn_only or saving):
         t0 = time.perf_counter()
         lms = phase_lm(seed=0)
         log("lm phase: " + json.dumps(lms))
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or args.lm_only or saving):
+            args.sharded_only or args.lm_only or args.gnn_only or saving):
         t0 = time.perf_counter()
         row, trained = phase_train(seed=0)
         table.append(row)
         log("train phase: " + json.dumps(trained))
         log(f"train phase {time.perf_counter() - t0:.1f} s")
+    if not (args.paged_only or args.recsys_only or args.serve_only or
+            args.sharded_only or args.lm_only or args.train_only or saving):
+        t0 = time.perf_counter()
+        log("gnn phase: " + json.dumps(phase_gnn(seed=0)))
+        log(f"gnn phase {time.perf_counter() - t0:.1f} s")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     print(card, flush=True)

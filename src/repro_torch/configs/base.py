@@ -1,9 +1,6 @@
 """Config dataclasses and input-shape specs (copies of the reference's
-``ShapeSpec``, ``LMConfig``, ``RecsysConfig``, ``LM_SHAPES`` and
-``RECSYS_SHAPES``).
-
-The GNN config and its shapes are not ported yet (ROADMAP.md Queue 1
-item 12).
+``ShapeSpec``, ``LMConfig``, ``GNNConfig``, ``RecsysConfig``,
+``LM_SHAPES``, ``GNN_SHAPES`` and ``RECSYS_SHAPES``).
 """
 from __future__ import annotations
 
@@ -90,6 +87,18 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_interactions: int
+    d_hidden: int
+    n_rbf: int
+    cutoff: float
+    d_feat_default: int = 128
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     interaction: str                 # dot | cross | cin | augru
@@ -118,6 +127,21 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
     ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+)
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "train",
+              extras=(("n_nodes", 2708), ("n_edges", 10556),
+                      ("d_feat", 1433))),
+    ShapeSpec("minibatch_lg", "train",
+              extras=(("n_nodes", 232_965), ("n_edges", 114_615_892),
+                      ("batch_nodes", 1024), ("fanout", (15, 10)),
+                      ("d_feat", 602))),
+    ShapeSpec("ogb_products", "train",
+              extras=(("n_nodes", 2_449_029), ("n_edges", 61_859_140),
+                      ("d_feat", 100))),
+    ShapeSpec("molecule", "train",
+              extras=(("n_nodes", 30), ("n_edges", 64), ("batch", 128))),
 )
 
 RECSYS_SHAPES = (

@@ -1,7 +1,11 @@
-"""The four recsys architectures (exact public configs; copies of the
-reference's ``configs/other_archs.py``).  SchNet waits for ROADMAP.md
-Queue 1 item 12."""
-from repro_torch.configs.base import RecsysConfig
+"""GNN + recsys assigned architectures (exact public configs; copies of
+the reference's ``configs/other_archs.py``)."""
+from repro_torch.configs.base import GNNConfig, RecsysConfig
+
+# [arXiv:1706.08566; paper]
+SCHNET = GNNConfig(
+    name="schnet", n_interactions=3, d_hidden=64, n_rbf=300, cutoff=10.0,
+)
 
 # Criteo-Kaggle per-field vocabularies (public, DeepCTR reference)
 _CRITEO_KAGGLE_26 = (

@@ -2,9 +2,8 @@
 (the reference's ``configs/registry.py``).
 
 ``input_specs(arch, shape)`` returns ``(shape, torch.dtype)`` pairs where
-the reference returns ``jax.ShapeDtypeStruct`` stand-ins.  SchNet (the
-GNN family) and the reference's dry-run overrides wait for ROADMAP.md
-Queue 1 item 12; asking for SchNet raises.
+the reference returns ``jax.ShapeDtypeStruct`` stand-ins.  The
+reference's dry-run overrides wait for ROADMAP.md Queue 1 item 12 part 6.
 """
 from __future__ import annotations
 
@@ -14,14 +13,15 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.configs import lm_archs, other_archs
-from repro_torch.configs.base import (LM_SHAPES, RECSYS_SHAPES, LMConfig,
-                                      RecsysConfig, ShapeSpec)
+from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                      GNNConfig, LMConfig, RecsysConfig,
+                                      ShapeSpec)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
-    family: str                      # lm | recsys (gnn not ported yet)
-    config: Union[LMConfig, RecsysConfig]
+    family: str                      # lm | gnn | recsys
+    config: Union[LMConfig, GNNConfig, RecsysConfig]
     shapes: Tuple[ShapeSpec, ...]
 
 
@@ -32,20 +32,16 @@ ARCHS: Dict[str, ArchEntry] = {
                                     LM_SHAPES),
     "qwen2-moe-a2.7b": ArchEntry("lm", lm_archs.QWEN2_MOE_A2_7B, LM_SHAPES),
     "grok-1-314b": ArchEntry("lm", lm_archs.GROK_1_314B, LM_SHAPES),
+    "schnet": ArchEntry("gnn", other_archs.SCHNET, GNN_SHAPES),
     "xdeepfm": ArchEntry("recsys", other_archs.XDEEPFM, RECSYS_SHAPES),
     "dcn-v2": ArchEntry("recsys", other_archs.DCN_V2, RECSYS_SHAPES),
     "dlrm-mlperf": ArchEntry("recsys", other_archs.DLRM_MLPERF,
                              RECSYS_SHAPES),
     "dien": ArchEntry("recsys", other_archs.DIEN, RECSYS_SHAPES),
 }
-_NOT_PORTED = ("schnet",)
 
 
 def get(arch: str) -> ArchEntry:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: the GNN config is not ported yet (ROADMAP.md Queue 1 "
-            f"item 12)")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]
@@ -58,6 +54,20 @@ def get_shape(arch: str, shape: str) -> ShapeSpec:
     raise KeyError(f"unknown shape {shape!r} for {arch}")
 
 
+def _gnn_sample_sizes(spec: ShapeSpec) -> Tuple[int, int]:
+    """Padded (n_nodes, n_edges) for the lowered graph batch."""
+    if spec.name == "minibatch_lg":
+        b = spec.extra("batch_nodes")
+        f1, f2 = spec.extra("fanout")
+        hop1 = b * f1
+        hop2 = (b + hop1) * f2
+        return b + hop1 + hop2, hop1 + hop2       # sampled subgraph
+    if spec.name == "molecule":
+        b = spec.extra("batch")
+        return b * spec.extra("n_nodes"), b * spec.extra("n_edges")
+    return spec.extra("n_nodes"), spec.extra("n_edges")
+
+
 def input_specs(arch: str, shape: str) -> dict:
     """``(shape, dtype)`` of each of the step function's data arguments."""
     entry = get(arch)
@@ -68,6 +78,18 @@ def input_specs(arch: str, shape: str) -> dict:
             return {"tokens": ((B, spec.seq_len), torch.int32)}
         # decode: one new token; the KV cache is carried state, not input
         return {"token": ((B, 1), torch.int32), "pos": ((), torch.int32)}
+    if entry.family == "gnn":
+        n, e = _gnn_sample_sizes(spec)
+        out = {"src": ((e,), torch.int32), "dst": ((e,), torch.int32),
+               "edge_dist": ((e,), torch.float32),
+               "graph_id": ((n,), torch.int32)}
+        if spec.name == "molecule":
+            out["atom_type"] = ((n,), torch.int32)
+            out["targets"] = ((spec.extra("batch"),), torch.float32)
+        else:
+            out["node_feat"] = ((n, spec.extra("d_feat")), torch.float32)
+            out["targets"] = ((1,), torch.float32)
+        return out
     cfg: RecsysConfig = entry.config
     if spec.kind == "retrieval":
         return {"user_sparse": ((1, cfg.n_sparse), torch.int32),
@@ -85,9 +107,11 @@ def input_specs(arch: str, shape: str) -> dict:
 
 def reduced_config(arch: str):
     """Tiny same-family config for CPU smoke tests (the reference's
-    ``reduced_config``, LM and recsys branches)."""
+    ``reduced_config``)."""
     entry = get(arch)
     cfg = entry.config
+    if entry.family == "gnn":
+        return dataclasses.replace(cfg, n_rbf=16)
     if entry.family == "recsys":
         # shrink tables
         small_vocab = tuple(min(v, 1000) for v in cfg.vocab_sizes)

@@ -11,10 +11,10 @@ engine would — and :func:`dump_lifecycle` reads one back out.
 
 The LM side carries a reference ``init_lm`` parameter tree (nested
 dicts of numpy arrays) and a ``PagedKVState`` (uint32 ``link``/``tail``
-as int64 here) across the same way, and the recsys side a reference
-recsys parameter tree (dicts and lists of numpy arrays).  An optimizer
-state (``AdamWState`` or ``CompressedState``, any object with those
-fields) crosses as its parameter trees do.
+as int64 here) across the same way, and the recsys and GNN sides a
+reference recsys or SchNet parameter tree (dicts and lists of numpy
+arrays).  An optimizer state (``AdamWState`` or ``CompressedState``, any
+object with those fields) crosses as its parameter trees do.
 """
 from __future__ import annotations
 
@@ -154,9 +154,10 @@ def params_from_numpy(tree, cfg, device="cuda") -> dict:
     """The port's parameters from a reference init tree of numpy arrays
     (``init_lm``'s dicts with stacked ``[L, ...]`` layers, or a recsys
     ``init_*``'s dicts holding lists of layer dicts such as
-    ``bot``/``top``, ``cross``, ``cin``): the same names and nesting, in
-    the config's ``param_dtype`` (an MoE ``router`` in fp32); bf16 leaves
-    travel as their bit pattern."""
+    ``bot``/``top``, ``cross``, ``cin``; ``init_schnet``'s dict with its
+    ``interactions`` list): the same names and nesting, in the config's
+    ``param_dtype`` (an MoE ``router`` in fp32); bf16 leaves travel as
+    their bit pattern."""
     dt = getattr(torch, cfg.param_dtype)
     # the MoE router stays fp32, as the reference's init makes it
     return _map_tree(lambda a, key: _tensor(
@@ -170,7 +171,9 @@ def params_to_numpy(params) -> dict:
 
 
 lm_params_from_numpy = recsys_params_from_numpy = params_from_numpy
+gnn_params_from_numpy = params_from_numpy
 lm_params_to_numpy = recsys_params_to_numpy = params_to_numpy
+gnn_params_to_numpy = params_to_numpy
 
 
 def opt_state_from_numpy(state, device="cuda"):

@@ -1,7 +1,7 @@
 """Step factories per architecture family (the reference's
-``train/steps.py``): the LM and recsys train steps, the LM prefill and
-decode steps, the recsys forward and retrieval steps, and parameter init
-by family.
+``train/steps.py``): the LM, GNN and recsys train steps, the LM prefill
+and decode steps, the GNN and recsys forwards, the recsys retrieval
+step, and parameter init by family.
 
 Each factory closes over the config (and the optimizer) and returns a
 plain function of (params, ...) that runs where the parameters are;
@@ -10,8 +10,7 @@ autograd (``torch.autograd.grad``), microbatches split along the leading
 axis and their gradients summed in ``grad_accum_dtype`` (fp32), loss and
 gradients scaled by 1/n, then an optional ``grad_transform`` and the
 optimizer's pure update.  With one microbatch the gradients stay in the
-parameters' dtype, as the reference's do.  The GNN train step waits for
-``models/schnet.py`` (ROADMAP.md Queue 1 item 12 part 4) and raises.
+parameters' dtype, as the reference's do.
 """
 from __future__ import annotations
 
@@ -19,18 +18,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.kernels import ops
 from repro_torch.models import recsys as R
+from repro_torch.models import schnet as G
 from repro_torch.models import transformer as T
 from repro_torch.train import tree
 from repro_torch.train.optimizer import AdamW, AdamWState, global_norm
-
-
-def make_gnn_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_gnn_train_step: SchNet is not ported yet (ROADMAP.md Queue 1 "
-        "item 12 part 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +120,48 @@ def make_lm_decode_step(cfg: LMConfig) -> Callable:
 
 
 # ---------------------------------------------------------------------------
+# GNN (SchNet)
+# ---------------------------------------------------------------------------
+def _graph_batch(batch: dict, n_graphs: int) -> G.GraphBatch:
+    return G.GraphBatch(
+        node_feat=batch.get("node_feat"), atom_type=batch.get("atom_type"),
+        src=batch["src"], dst=batch["dst"], edge_dist=batch["edge_dist"],
+        graph_id=batch["graph_id"], n_graphs=n_graphs)
+
+
+def make_gnn_train_step(cfg: GNNConfig, opt: AdamW,
+                        n_graphs: int = 1) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss"})``: ``schnet_loss`` of the batch dict (``src``, ``dst``,
+    ``edge_dist``, ``graph_id``, ``targets`` [n_graphs], and
+    ``node_feat`` or ``atom_type``) and one optimizer update, where the
+    parameters are."""
+    def loss_fn(params, batch):
+        return G.schnet_loss(params, _graph_batch(batch, n_graphs),
+                             batch["targets"], cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = _value_and_grad(loss_fn, params, batch)
+        params, opt_state = _apply(opt, params, opt_state, grads)
+        return params, opt_state, {"loss": loss}
+
+    return train_step
+
+
+def make_gnn_forward(cfg: GNNConfig, n_graphs: int = 1,
+                     device="cuda") -> Callable:
+    """``forward(params, batch) -> (per-node outputs [N, n_out],
+    per-graph readout [n_graphs, n_out])`` for a batch dict of tensors on
+    ``device`` (the radial-basis centres are made there once)."""
+    centers = G.rbf_centers(cfg.n_rbf, cfg.cutoff, device)
+
+    def forward(params, batch):
+        return G.schnet_forward(params, _graph_batch(batch, n_graphs), cfg,
+                                centers)
+    return forward
+
+
+# ---------------------------------------------------------------------------
 # Recsys
 # ---------------------------------------------------------------------------
 def _recsys_batch(batch: dict) -> R.RecsysBatch:
@@ -198,14 +234,16 @@ def init_params_for(arch_entry, cfg, seed: int = 0, shape_spec=None,
                     device="cuda"):
     """Random parameters of ``cfg`` (the reference's shapes, dtypes and
     scales; its ``jax.random`` stream is not reproduced, so tests carry
-    a reference tree across with ``core.convert``)."""
+    a reference tree across with ``core.convert``).  SchNet's input
+    width is ``shape_spec``'s ``d_feat`` (else ``cfg.d_feat_default``)."""
     fam = arch_entry.family
     if fam == "lm":
         return T.init_lm(cfg, seed=seed, device=device)
-    if fam != "recsys":
-        raise NotImplementedError(f"{fam}: not ported yet (ROADMAP.md "
-                                  f"Queue 1 item 12)")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if fam == "gnn":
+        d_feat = (shape_spec.extra("d_feat", cfg.d_feat_default)
+                  if shape_spec is not None else cfg.d_feat_default)
+        return G.init_schnet(cfg, gen, d_feat=d_feat, device=device)
     init, _ = R.FORWARDS[cfg.interaction]
     return init(cfg, gen)

@@ -26,16 +26,19 @@ from repro_torch.core import sharded_index as tsh
 from repro_torch.core.lifecycle import LifecycleEngine, ShardedLifecycleEngine
 from repro_torch.core.qexec import FrozenStack
 from repro_torch.core.segments import SegmentSet
+from repro_torch.data import graph_sampler as tGS
 from repro_torch.data import lm_data as tD
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels.segment_intersect import decode_packed
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import recsys as tR
+from repro_torch.models import schnet as tG
 from repro_torch.models import transformer as tT
 from repro_torch.paged import kv_cache as tkv
 from repro_torch.paged import serve_model as tsm
 from repro_torch.train import steps as tS
+from repro_torch.train import tree as ttree
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -73,7 +76,9 @@ def test_guard_sees_every_port_module():
                  "moe.py", "lm_data.py", "tinyllama_1b.py", "gemma3_12b.py",
                  "deepseek_coder_33b.py", "qwen2_moe_a2_7b.py",
                  "grok_1_314b.py", "optimizer.py", "checkpoint.py",
-                 "compression.py", "elastic.py", "tree.py", "train.py"):
+                 "compression.py", "elastic.py", "tree.py", "train.py",
+                 "schnet.py", "graph_sampler.py", "dcn_v2.py", "dien.py",
+                 "dlrm_mlperf.py", "xdeepfm.py"):
         assert must in names
 
 
@@ -91,7 +96,8 @@ def test_entry_points_default_to_cuda():
                tR.field_offsets, tconv.recsys_params_from_numpy,
                ShardedLifecycleEngine.__init__, tsh.make_doc_mesh,
                tsp.init_sharded_state, tD.make_batch_fn, tD.batches,
-               tconv.opt_state_from_numpy):
+               tconv.opt_state_from_numpy, tG.init_schnet,
+               tS.make_gnn_forward, tconv.gnn_params_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
@@ -130,8 +136,7 @@ def test_recsys_entry_points_never_fall_back_to_the_cpu():
     """Asked for the card (the default) without CUDA, the recsys entry
     points raise; the kernel's wrapper raises on CPU tensors rather than
     run the plain version, and on a wrong dtype or a non-contiguous
-    table; so does the bag's backward wrapper; only the GNN train step
-    still raises naming its ROADMAP item."""
+    table; so does the bag's backward wrapper."""
     cfg = treg.reduced_config("dcn-v2")
     entry = treg.get("dcn-v2")
     if not torch.backends.cuda.is_built():
@@ -151,14 +156,45 @@ def test_recsys_entry_points_never_fall_back_to_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         teb.embedding_bag_backward(torch.zeros(2, 4), idx, off, "sum", 8,
                                    torch.float32)
-    # only the GNN step (and SchNet) still wait for their ROADMAP item
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tS.make_gnn_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        treg.get("schnet")
     # the recsys train step runs where the parameters are
     assert list(inspect.signature(tS.make_recsys_train_step).parameters) \
         == ["cfg", "opt", "n_microbatches"]
+
+
+def test_gnn_entry_points_never_fall_back_to_the_cpu():
+    """Asked for the card (the default) without CUDA, SchNet's init (by
+    itself and through ``init_params_for``), the forward factory and the
+    sampler's card sort raise; the train step runs where the parameters
+    are."""
+    cfg = treg.reduced_config("schnet")
+    entry = treg.get("schnet")
+    if not torch.backends.cuda.is_built():
+        for call in (lambda: tG.init_schnet(cfg, torch.Generator(), 8),
+                     lambda: tS.init_params_for(entry, cfg),
+                     lambda: tS.init_params_for(
+                         entry, cfg, shape_spec=treg.get_shape(
+                             "schnet", "molecule")),
+                     lambda: tS.make_gnn_forward(cfg),
+                     lambda: tGS.random_graph(16, 2, device="cuda")):
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+    assert list(inspect.signature(tS.make_gnn_train_step).parameters) == \
+        ["cfg", "opt", "n_graphs"]
+    for fn in (tGS.CSRGraph.from_edges, tGS.random_graph):
+        assert inspect.signature(fn).parameters["device"].default is None
+
+
+def test_no_entry_point_waits_for_the_gnn_slice():
+    """SchNet is in the registry and every GNN factory works: nothing
+    left raises ``NotImplementedError`` naming Queue 1 item 12 parts 4
+    or 7."""
+    cfg = treg.get("schnet").config
+    assert treg.get("schnet").family == "gnn"
+    assert callable(tS.make_gnn_train_step(cfg, None))
+    assert callable(tS.make_gnn_forward(cfg, device="cpu"))
+    src = "\n".join(p.read_text(encoding="utf-8") for p in PORT_FILES)
+    for part in ("part 4", "part 7", "12.4", "12.7"):
+        assert f"item 12 {part}" not in src and f"item {part}" not in src
 
 
 def test_lm_entry_points_never_fall_back_to_the_cpu(tmp_path):
@@ -249,6 +285,44 @@ def test_lm_paths_on_the_card_match_the_cpu():
         torch.testing.assert_close(tM._moe_ffn_tokens(x[g], layer, cfg)[0],
                                    y[g], rtol=1e-5, atol=1e-5)
     assert float(m["drop_fraction"]) == 0.0
+
+
+@pytest.mark.cuda
+def test_gnn_paths_on_the_card_match_the_cpu():
+    """``chip_smoke.py`` phase 11 (a) at the reduced config: SchNet's
+    forward and one train step on the card against the same weights and
+    graph on the CPU, fp32 with TF32 off (1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.train.optimizer import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = treg.reduced_config("schnet")
+    rng = np.random.default_rng(0)
+    N, E, F = 50, 200, 16
+    batch = dict(
+        node_feat=torch.as_tensor(rng.normal(size=(N, F)),
+                                  dtype=torch.float32),
+        src=torch.as_tensor(rng.integers(0, N, E), dtype=torch.int32),
+        dst=torch.as_tensor(rng.integers(0, N, E), dtype=torch.int32),
+        edge_dist=torch.as_tensor(rng.uniform(0, 10, E),
+                                  dtype=torch.float32),
+        graph_id=torch.zeros(N, dtype=torch.int32),
+        targets=torch.ones(1))
+    cpu = tG.init_schnet(cfg, torch.Generator().manual_seed(0), F,
+                         device="cpu")
+    dev = tconv._map_tree(lambda a, key: a.to("cuda"), cpu)
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for got, want in zip(tS.make_gnn_forward(cfg)(dev, gpu_batch),
+                         tS.make_gnn_forward(cfg, device="cpu")(cpu, batch)):
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    opt = AdamW()
+    step = tS.make_gnn_train_step(cfg, opt)
+    pg, sg, mg = step(dev, opt.init(dev), gpu_batch)
+    pc, sc, mc = step(cpu, opt.init(cpu), batch)
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], **tol)
+    for g, c in zip(ttree.leaves(pg), ttree.leaves(pc)):
+        torch.testing.assert_close(g.cpu(), c, **tol)
 
 
 @pytest.mark.cuda
