@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port (the streaming index, single-device and
 document-sharded, the paged-KV decoder server, recsys serving, the LMs'
-forward, prefill and decode, training, and SchNet) on one GPU.
+forward, prefill and decode, training, SchNet, and the mesh layer's
+one-device mesh, dry-run and roofline) on one GPU.
 
     python3 chip_smoke.py
 
@@ -173,6 +174,23 @@ Phases, in order (any failure raises and exits non-zero):
      ops); (d) a step repeated from the same state gives equal bits;
      then minibatch_lg's steps timed outside deterministic mode.
 
+  12. the mesh layer (``dist/sharding.py``, ``launch/dryrun.py``,
+     ``launch/roofline.py``; no kernel): (a) TinyLlama-1.1B's forward at
+     full width (bf16, 1 x 4,096, phase 10's tree from seed 0) plainly
+     and with its parameters as DTensors on the card's one-device NCCL
+     mesh under the cell's rules: the logits bit-equal (else the first
+     op that differs is reported); (b) the dry-run of tinyllama-1.1b
+     train_4k and dcn-v2 serve_p99 at full width on the fake (16, 16)
+     mesh, one subprocess each; (c) for each step that phases 6, 9, 10
+     and 11 time (DCN-v2 serve_bulk and train_batch, Gemma3-12B's and
+     Qwen2-MoE's 32k prefill, TinyLlama-1.1B's 8 x 4,096 train step,
+     SchNet minibatch_lg), the dry-run on ``--mesh card`` at the shape the
+     phase ran: its roofline bound and term at the dtype's peak beside
+     the phase's median, ``mfu`` = model FLOPs / (median x peak), and
+     the dry-run's memory beside the phase's ``max_memory_allocated``.
+     (b) and (c)'s dry-runs start at the script's start, niced, one
+     thread each, and run beside the other phases.
+
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
 and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9,
@@ -187,7 +205,11 @@ inputs and the sequential route's ``segment_intersect_mask`` inputs to
 ``PATH`` for ``launch/time_segment_intersect.py --calls``;
 ``--bag-calls PATH`` phase 1 and one call of each phase-6 cell, saving
 its ten ``embedding_bag`` calls to ``PATH`` for
-``launch/time_embedding_bag.py --calls``.
+``launch/time_embedding_bag.py --calls``; ``--launch-only`` phases 1 and
+12 (no phase times, so (c) prints bounds only), then the dry-run sweep
+of all 36 cells on both fake meshes (``dryrun --all --jobs 8 --set
+probe=True``; ``--sweep-out PATH`` keeps its JSON lines), with its wall
+time.
 
 The last two lines are the kernel table as JSON, the card's name and
 power limit, and the result line.  The script imports only torch, numpy
@@ -2893,6 +2915,8 @@ def recsys_cell(arch, shape, cfg, params, rng) -> dict:
     multi = [i for i, (_, _, off, _) in enumerate(captured)
              if bool(((off[1:] - off[:-1]) > 1).any())]
     med = float(np.median(times[WARM:]))
+    if (arch, shape) == ("dcn-v2", "serve_bulk"):
+        record_step("dcn-v2 serve_bulk", arch, shape, {}, med / 1e3, peak, 6)
     log(f"recsys {arch} {shape}: {med:.3f} ms per batch (median of "
         f"{TIMED}; {', '.join(f'{t:.2f}' for t in times[WARM:])}), "
         f"{n_out / med * 1e3:.0f} {'candidates' if spec.kind == 'retrieval' else 'samples'}"
@@ -3092,6 +3116,10 @@ def _prefill_check(name, cfg, params, S: int, q_chunk: int, seed: int,
     if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"{name} prefill: logits {tuple(logits.shape)} "
                              f"not finite")
+    if S == PREFILL_LEN:
+        record_step(f"{name} prefill_32k", name, "prefill_32k", dict(
+            global_batch=1, seq_len=S, q_chunk=q_chunk), sec,
+            torch.cuda.max_memory_allocated(), 9)
     out = dict(prefill_s=sec, prefill_tok_per_s=S / sec,
                cache={f: list(v) for f, v in shapes.items()})
     log(f"{name} prefill B=1 x {S} (q_chunk {q_chunk}): {sec:.2f} s, "
@@ -3683,6 +3711,8 @@ def dcn_train(tmp: str, seed: int) -> dict:
     state_bytes = sum(t.numel() * t.element_size()
                       for t in ttree.leaves((p_clean, s_clean)))
     med = float(np.median(times[1:]))
+    record_step("dcn-v2 train_batch", "dcn-v2", "train_batch", {}, med, peak,
+                10)
     out = dict(step_s=times, median_s=med, samples_per_s=B / med,
                peak_bytes=peak, launches=counts, idle=traced["idle"],
                traced_ms=traced["wall_ms"], busy_ms=traced["busy_ms"],
@@ -3822,6 +3852,10 @@ def lm_train(name: str, cfg, B: int, n_micro: int, steps: int, seed: int,
     # allocator and cuBLAS), or the one step there is
     plain = times[1:-1] if traced else times[1:]
     step_s = float(np.median(plain)) if plain else times[0]
+    if name == "tinyllama-1.1b":
+        record_step("tinyllama-1.1b train_4k", name, "train_4k", dict(
+            global_batch=B, seq_len=TRAIN_LEN, n_microbatches=n_micro,
+            q_chunk=512), step_s, peak, 10)
     out = dict(layers=cfg.n_layers, params=n, batch=B, seq=TRAIN_LEN,
                n_micro=n_micro, init_s=init_s, step_s=times,
                tokens_per_s=B * TRAIN_LEN / step_s, metrics=metrics,
@@ -4016,6 +4050,9 @@ def gnn_train(name: str, cfg, shape: str, batch: dict, n_graphs: int,
                              f"state differs")
     del a, b
     step_s = float(np.median(times[1:-1]))
+    if name == "minibatch_lg":
+        record_step("schnet minibatch_lg", "schnet", name, {}, step_s, peak,
+                    11)
     E, N = batch["src"].shape[0], batch["graph_id"].shape[0]
     out = dict(nodes=N, edges=E, real_edges=n_real_edges, step_s=times,
                median_s=step_s, edges_per_s=E / step_s,
@@ -4182,6 +4219,272 @@ def phase_gnn(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh, the sharding rules, the dry-run and the roofline
+# ---------------------------------------------------------------------------
+PHASE_STEPS = {}      # name -> one timed step of phases 6, 9, 10, 11
+
+
+def record_step(name: str, arch: str, shape: str, over: dict, sec: float,
+                peak: int, phase: int) -> None:
+    """A phase's median step time and peak device memory, for (c)."""
+    PHASE_STEPS[name] = dict(arch=arch, shape=shape, over=over, sec=sec,
+                             peak_bytes=int(peak), phase=phase)
+
+
+# (c)'s steps at the shapes their phases run (the dry-run's overrides);
+# the LMs probed at two depths and extrapolated (exact in FLOPs and bytes)
+ROOF_STEPS = [
+    ("tinyllama-1.1b train_4k", "tinyllama-1.1b", "train_4k",
+     dict(global_batch=8, seq_len=4096, n_microbatches=2, q_chunk=512,
+          probe=True)),
+    ("gemma3-12b prefill_32k", "gemma3-12b", "prefill_32k",
+     dict(global_batch=1, seq_len=32768, q_chunk=256, probe=True)),
+    ("qwen2-moe-a2.7b prefill_32k", "qwen2-moe-a2.7b", "prefill_32k",
+     dict(global_batch=1, seq_len=32768, q_chunk=256, probe=True)),
+    ("dcn-v2 serve_bulk", "dcn-v2", "serve_bulk", {}),
+    ("dcn-v2 train_batch", "dcn-v2", "train_batch", {}),
+    ("schnet minibatch_lg", "schnet", "minibatch_lg", {}),
+]
+# (b): two cells at full width on the (16, 16) mesh of fake ranks
+MESH_CELLS = [("tinyllama-1.1b", "train_4k"), ("dcn-v2", "serve_p99")]
+TRACE_TIMEOUT = 600
+
+
+def _dryrun_cmd(arch, shape, mesh, over, out):
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shape", shape, "--mesh", mesh, "--out", out]
+    if over:
+        cmd += ["--set"] + [f"{k}={v}" for k, v in over.items()]
+    return cmd
+
+
+class LaunchTraces:
+    """Phase 12's dry-runs, each its own subprocess (the fake world lives
+    in no other process), started when the script starts and run at the
+    lowest priority on one thread each while the other phases use the
+    card: (b)'s two cells on the fake (16, 16) mesh and (c)'s six steps on
+    the card's own one-device NCCL mesh (``--mesh card``)."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
+        self.procs = {}
+        jobs = [(f"mesh {a} {s}", a, s, "single", {}) for a, s in MESH_CELLS]
+        jobs += [(f"card {n}", a, s, "card", o) for n, a, s, o in ROOF_STEPS]
+        self.t0 = time.perf_counter()
+        for key, arch, shape, mesh, over in jobs:
+            out = os.path.join(self.dir, key.replace(" ", "_") + ".jsonl")
+            proc = subprocess.Popen(
+                _dryrun_cmd(arch, shape, mesh, over, out), env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, preexec_fn=lambda: os.nice(19))
+            self.procs[key] = (proc, out)
+
+    def result(self, key: str) -> dict:
+        """The job's JSON record and its wall time (waits for it)."""
+        proc, out = self.procs[key]
+        try:
+            _, err = proc.communicate(timeout=TRACE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"dry-run {key}: over {TRACE_TIMEOUT} s")
+        rec = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                rec = json.loads(f.read().strip().splitlines()[-1])
+        if proc.returncode != 0 or not rec.get("ok"):
+            raise AssertionError(f"dry-run {key}: exit {proc.returncode}: "
+                                 f"{rec.get('error')} {(err or '')[-2000:]}")
+        return rec
+
+    def kill(self) -> None:
+        """Stop every job still running."""
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _first_difference(run_plain, run_mesh) -> str:
+    """The first op whose output differs between the plain forward and
+    the one over the one-device mesh (each op's output, in order)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                t = (out.to_local() if isinstance(out, DTensor)
+                     else out).detach()
+                sums = (float(t.double().sum()), float(t.double().abs().sum())
+                        ) if t.is_floating_point() else (
+                    float(t.long().sum()),)
+                self.outs.append((str(func), tuple(t.shape), sums))
+            return out
+
+    recs = []
+    for run in (run_plain, run_mesh):
+        with Record() as r:
+            run()
+        recs.append(r.outs)
+    for i, ((f, sa, a), (g, sb, b)) in enumerate(zip(*recs)):
+        if sa != sb or a != b:
+            return f"op {i}: {f} (mesh run: {g})"
+    return f"no op output differs ({len(recs[0])} vs {len(recs[1])} ops)"
+
+
+def launch_forward(seed: int) -> dict:
+    """(a) TinyLlama-1.1B's forward at full width (bf16, 1 x 4,096 tokens,
+    phase 10's tree from ``seed``): plainly, and with its parameters as
+    DTensors on the card's one-device NCCL mesh under the cell's rules;
+    the logits bit-equal, or the first op that differs is reported."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist.sharding import (Resharding, distribute_tree,
+                                           tree_shardings, use_rules)
+    from repro_torch.launch import dryrun as tdry
+    arch = "tinyllama-1.1b"
+    cfg = registry.get(arch).config
+    spec = dataclasses.replace(registry.get_shape(arch, "train_4k"),
+                               global_batch=1, seq_len=TRAIN_LEN)
+    _lm_free()
+    params = lm.init_lm(cfg, seed=seed, device="cuda")
+    toks = tlm_data.make_batch_fn(tlm_data.LMDataConfig(
+        vocab=cfg.vocab, batch=1, seq_len=TRAIN_LEN, seed=seed),
+        device="cuda")(0)
+    with torch.no_grad():
+        plain, t_plain = _timed(lambda: lm.lm_forward(params, toks, cfg,
+                                                      512))
+        with tdry.mesh_for("card") as mesh:
+            rules = tdry.rules_for(mesh, registry.get(arch), spec, {})
+            dparams = distribute_tree(params, mesh, tree_shardings(
+                rules, lm.lm_param_specs(cfg)))
+
+            def run_mesh():
+                with use_rules(rules), implicit_replication(), Resharding():
+                    out = lm.lm_forward(dparams, toks, cfg, 512)
+                return out.full_tensor() if isinstance(out, DTensor) \
+                    else out
+            got, t_mesh = _timed(run_mesh)
+            kinds = sorted({type(t).__name__
+                            for t in ttree.leaves(dparams)})
+            equal = torch.equal(got, plain)
+            where = "" if equal else _first_difference(
+                lambda: lm.lm_forward(params, toks, cfg, 512), run_mesh)
+            backend = dist.get_backend()
+        del dparams
+    if not torch.isfinite(plain).all():
+        raise AssertionError("(a) plain logits not finite")
+    d = float((got.float() - plain.float()).abs().max())
+    out = dict(shape=list(plain.shape), dtype=str(plain.dtype),
+               bit_equal=equal, max_abs_diff=d, plain_s=t_plain,
+               mesh_s=t_mesh, param_types=kinds, backend=backend)
+    log(f"phase 12 (a) tinyllama-1.1b forward 1 x {TRAIN_LEN} bf16: plain "
+        f"{t_plain:.3f} s, on the one-device {backend} mesh ({kinds} "
+        f"parameters, {plain.shape[-1]}-wide logits) {t_mesh:.3f} s; "
+        f"bit-equal {equal} (max |d| {d:.3g})")
+    del params, plain, got
+    _lm_free()
+    if not equal:
+        raise AssertionError(f"(a) logits differ on the one-device mesh: "
+                             f"first at {where}")
+    return out
+
+
+def phase_launch(traces: LaunchTraces, seed: int, timed: bool) -> dict:
+    """Phase 12: (a) the one-device mesh forward; (b) the dry-run of two
+    cells at full width on the fake (16, 16) mesh; (c) each timed step's
+    roofline on the card's mesh with its dtype's peak, beside its phase's
+    median and peak memory (``timed``: the phases ran)."""
+    from repro_torch.launch import roofline as RL
+    out = {"a": launch_forward(seed), "b": {}, "c": {}}
+    for arch, shape in MESH_CELLS:
+        rec = traces.result(f"mesh {arch} {shape}")
+        out["b"][f"{arch} {shape}"] = rec
+        log(f"phase 12 (b) dry-run {arch} {shape} on the fake (16, 16) "
+            f"mesh ({rec['n_devices']} ranks), traced in {rec['t_lower_s']}"
+            f" s: " + json.dumps({k: rec[k] for k in (
+                "flops_per_dev", "bytes_per_dev", "wire_bytes_per_dev",
+                "per_device_mem", "bottleneck", "roofline_fraction",
+                "useful_flop_ratio", "collectives")}))
+    if not timed:
+        log("phase 12 (c): no phase times under --launch-only; bounds "
+            "only")
+    for name, arch, shape, _ in ROOF_STEPS:
+        rec = traces.result(f"card {name}")
+        if rec["n_devices"] != 1 or rec["mesh"] != "card":
+            raise AssertionError(f"(c) {name}: not on the card's mesh")
+        r = RL.Roofline(
+            arch=arch, shape=shape, mesh="card", flops=rec["flops_per_dev"],
+            hlo_bytes=rec["bytes_per_dev"],
+            wire_bytes=rec["wire_bytes_per_dev"],
+            model_flops=rec["model_flops"], n_devices=1,
+            per_device_mem=rec["per_device_mem"], collective_detail={},
+            peak=rec["peak"])
+        row = dict(bound_s=r.t_bound, bound_by=r.bottleneck,
+                   t_compute=r.t_compute, t_memory=r.t_memory,
+                   model_flops=r.model_flops, peak=r.peak,
+                   per_device_mem=r.per_device_mem,
+                   traced_s=rec["t_lower_s"])
+        if not all(np.isfinite(v) and v > 0 for v in (
+                r.t_bound, r.model_flops, r.per_device_mem)):
+            raise AssertionError(f"(c) {name}: {row}")
+        step = PHASE_STEPS.get(name) if timed else None
+        if timed and step is None:
+            raise AssertionError(f"(c) {name}: its phase recorded no time")
+        msg = (f"phase 12 (c) {name}: bound {r.t_bound:.4g} s by "
+               f"{r.bottleneck} (compute {r.t_compute:.4g} s at "
+               f"{r.peak} {r.peak_flops / 1e12:.0f} TFLOP/s, memory "
+               f"{r.t_memory:.4g} s); model FLOPs {r.model_flops:.4g}; "
+               f"dry-run memory {r.per_device_mem / 2**30:.2f} GiB")
+        if step is not None:
+            row.update(measured_s=step["sec"], mfu=r.mfu(step["sec"]),
+                       bound_share=r.t_bound / step["sec"],
+                       max_memory_allocated=step["peak_bytes"],
+                       phase=step["phase"])
+            msg += (f"; phase {step['phase']} median {step['sec']:.4g} s: "
+                    f"mfu {row['mfu']:.4f}, bound/time "
+                    f"{row['bound_share']:.4f}; max_memory_allocated "
+                    f"{step['peak_bytes'] / 2**30:.2f} GiB")
+        out["c"][name] = row
+        log(msg)
+    traces.kill()
+    return out
+
+
+def sweep(path: str) -> dict:
+    """Every cell of the grid on both fake meshes (``dryrun --all``, the
+    LMs probed at two depths, eight cells at a time); its wall time and
+    one line a cell."""
+    env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--all", "--meshes", "single,multi", "--jobs", "8",
+                         "--set", "probe=True", "--out", path],
+                        env=env, stdout=subprocess.DEVNULL).returncode
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    for r in recs:
+        log("sweep " + (json.dumps({k: r.get(k) for k in (
+            "arch", "shape", "mesh", "flops_per_dev", "bytes_per_dev",
+            "wire_bytes_per_dev", "per_device_mem", "bottleneck",
+            "roofline_fraction", "t_lower_s")}) if r.get("ok") else
+            json.dumps(r)))
+    ok = sum(1 for r in recs if r.get("ok"))
+    log(f"sweep: {ok} of {len(recs)} cells ok in {wall:.1f} s (exit {rc})")
+    if rc != 0 or ok != 72:
+        raise AssertionError(f"sweep: {ok} of {len(recs)} ok, exit {rc}")
+    return dict(cells=len(recs), ok=ok, wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segment-log2", type=int, default=23,
@@ -4216,6 +4519,13 @@ def main(argv=None) -> int:
                     help="run only the build and phase 6's captures, and "
                          "save its ten embedding_bag calls to PATH (for "
                          "launch/time_embedding_bag.py --calls)")
+    ap.add_argument("--launch-only", action="store_true",
+                    help="run only the build, phase 12 (no phase times) "
+                         "and the dry-run sweep of every cell on both "
+                         "fake meshes")
+    ap.add_argument("--sweep-out", default="", metavar="PATH",
+                    help="where --launch-only's sweep writes its JSON lines "
+                         "(default: a temporary file)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4229,6 +4539,36 @@ def main(argv=None) -> int:
 
     table = []
     saving = args.intersect_calls or args.bag_calls or args.segment_calls
+    launch = not (saving or args.paged_only or args.recsys_only or
+                  args.serve_only or args.sharded_only or args.lm_only or
+                  args.train_only or args.gnn_only)
+    traces = LaunchTraces() if launch else None
+    try:
+        table = run_phases(args, saving, table)
+        if launch:
+            t0 = time.perf_counter()
+            res = phase_launch(traces, seed=0, timed=not args.launch_only)
+            log(f"launch phase {time.perf_counter() - t0:.1f} s (its "
+                f"dry-runs started {time.perf_counter() - traces.t0:.1f} s "
+                f"ago, beside the other phases)")
+            if args.launch_only:
+                path = args.sweep_out or os.path.join(traces.dir,
+                                                      "sweep.jsonl")
+                res["sweep"] = sweep(path)
+    finally:
+        if traces is not None:
+            traces.kill()
+    log(f"wall {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": table}))
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(args, saving, table) -> list:
+    """Phases 2-11 as the flags select them; the kernel table's rows."""
     if args.intersect_calls:
         phase_small(args.intersect_calls)
     elif args.segment_calls:
@@ -4240,10 +4580,10 @@ def main(argv=None) -> int:
         phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
         del docs
     elif not (args.paged_only or args.recsys_only or args.lm_only or
-              args.train_only or args.gnn_only):
+              args.train_only or args.gnn_only or args.launch_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
     only = (args.serve_only or args.sharded_only or args.lm_only or
-            args.train_only or args.gnn_only)
+            args.train_only or args.gnn_only or args.launch_only)
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -4262,30 +4602,27 @@ def main(argv=None) -> int:
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or args.train_only or args.gnn_only or saving):
+            args.sharded_only or args.train_only or args.gnn_only or saving
+            or args.launch_only):
         t0 = time.perf_counter()
         lms = phase_lm(seed=0)
         log("lm phase: " + json.dumps(lms))
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or args.lm_only or args.gnn_only or saving):
+            args.sharded_only or args.lm_only or args.gnn_only or saving
+            or args.launch_only):
         t0 = time.perf_counter()
         row, trained = phase_train(seed=0)
         table.append(row)
         log("train phase: " + json.dumps(trained))
         log(f"train phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
-            args.sharded_only or args.lm_only or args.train_only or saving):
+            args.sharded_only or args.lm_only or args.train_only or saving
+            or args.launch_only):
         t0 = time.perf_counter()
         log("gnn phase: " + json.dumps(phase_gnn(seed=0)))
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")
-    log(f"wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": table}))
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return table
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 (the reference's ``configs/registry.py``).
 
 ``input_specs(arch, shape)`` returns ``(shape, torch.dtype)`` pairs where
-the reference returns ``jax.ShapeDtypeStruct`` stand-ins.  The
-reference's dry-run overrides wait for ROADMAP.md Queue 1 item 12 part 6.
+the reference returns ``jax.ShapeDtypeStruct`` stand-ins.  ``cells()``
+walks the (arch x shape) grid without the skipped cells, and
+``overrides(arch, shape)`` gives a cell's dry-run knobs
+(:data:`DRYRUN_OVERRIDES`, read by ``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -23,15 +25,26 @@ class ArchEntry:
     family: str                      # lm | gnn | recsys
     config: Union[LMConfig, GNNConfig, RecsysConfig]
     shapes: Tuple[ShapeSpec, ...]
+    skip_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
 
+
+_FULL_ATTN_SKIP = (
+    "long_500k requires sub-quadratic attention structure; this arch is "
+    "pure full-attention (DESIGN.md §4 records the skip)."
+)
 
 ARCHS: Dict[str, ArchEntry] = {
-    "tinyllama-1.1b": ArchEntry("lm", lm_archs.TINYLLAMA_1B, LM_SHAPES),
+    "tinyllama-1.1b": ArchEntry("lm", lm_archs.TINYLLAMA_1B, LM_SHAPES,
+                                ("long_500k",), _FULL_ATTN_SKIP),
     "gemma3-12b": ArchEntry("lm", lm_archs.GEMMA3_12B, LM_SHAPES),
     "deepseek-coder-33b": ArchEntry("lm", lm_archs.DEEPSEEK_CODER_33B,
-                                    LM_SHAPES),
-    "qwen2-moe-a2.7b": ArchEntry("lm", lm_archs.QWEN2_MOE_A2_7B, LM_SHAPES),
-    "grok-1-314b": ArchEntry("lm", lm_archs.GROK_1_314B, LM_SHAPES),
+                                    LM_SHAPES, ("long_500k",),
+                                    _FULL_ATTN_SKIP),
+    "qwen2-moe-a2.7b": ArchEntry("lm", lm_archs.QWEN2_MOE_A2_7B, LM_SHAPES,
+                                 ("long_500k",), _FULL_ATTN_SKIP),
+    "grok-1-314b": ArchEntry("lm", lm_archs.GROK_1_314B, LM_SHAPES,
+                             ("long_500k",), _FULL_ATTN_SKIP),
     "schnet": ArchEntry("gnn", other_archs.SCHNET, GNN_SHAPES),
     "xdeepfm": ArchEntry("recsys", other_archs.XDEEPFM, RECSYS_SHAPES),
     "dcn-v2": ArchEntry("recsys", other_archs.DCN_V2, RECSYS_SHAPES),
@@ -54,6 +67,16 @@ def get_shape(arch: str, shape: str) -> ShapeSpec:
     raise KeyError(f"unknown shape {shape!r} for {arch}")
 
 
+def cells(include_skipped: bool = False):
+    """Every (arch, shape, skipped) cell of the grid."""
+    for arch, entry in ARCHS.items():
+        for s in entry.shapes:
+            skipped = s.name in entry.skip_shapes
+            if skipped and not include_skipped:
+                continue
+            yield arch, s.name, skipped
+
+
 def _gnn_sample_sizes(spec: ShapeSpec) -> Tuple[int, int]:
     """Padded (n_nodes, n_edges) for the lowered graph batch."""
     if spec.name == "minibatch_lg":
@@ -68,10 +91,11 @@ def _gnn_sample_sizes(spec: ShapeSpec) -> Tuple[int, int]:
     return spec.extra("n_nodes"), spec.extra("n_edges")
 
 
-def input_specs(arch: str, shape: str) -> dict:
-    """``(shape, dtype)`` of each of the step function's data arguments."""
+def input_specs(arch: str, shape: str, spec: ShapeSpec = None) -> dict:
+    """``(shape, dtype)`` of each of the step function's data arguments
+    (``spec``: the cell's shape with another batch or length)."""
     entry = get(arch)
-    spec = get_shape(arch, shape)
+    spec = spec or get_shape(arch, shape)
     B = spec.global_batch
     if entry.family == "lm":
         if spec.kind in ("train", "prefill"):
@@ -103,6 +127,29 @@ def input_specs(arch: str, shape: str) -> dict:
     if spec.kind == "train":
         out["label"] = ((B,), torch.float32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-cell dry-run overrides (fit-memory knobs)
+# ---------------------------------------------------------------------------
+DRYRUN_OVERRIDES: Dict[Tuple[str, str], dict] = {
+    # (arch, shape): dict(n_microbatches=..., q_chunk=..., seq_sharded=...)
+    ("tinyllama-1.1b", "train_4k"): dict(n_microbatches=2, q_chunk=512),
+    ("gemma3-12b", "train_4k"): dict(n_microbatches=4, q_chunk=512),
+    ("deepseek-coder-33b", "train_4k"): dict(n_microbatches=8, q_chunk=256),
+    ("qwen2-moe-a2.7b", "train_4k"): dict(n_microbatches=4, q_chunk=512),
+    ("grok-1-314b", "train_4k"): dict(n_microbatches=8, q_chunk=256),
+    ("tinyllama-1.1b", "prefill_32k"): dict(q_chunk=256, seq_sharded=True),
+    ("gemma3-12b", "prefill_32k"): dict(q_chunk=256, seq_sharded=True),
+    ("deepseek-coder-33b", "prefill_32k"): dict(q_chunk=128,
+                                                seq_sharded=True),
+    ("qwen2-moe-a2.7b", "prefill_32k"): dict(q_chunk=256, seq_sharded=True),
+    ("grok-1-314b", "prefill_32k"): dict(q_chunk=128, seq_sharded=True),
+}
+
+
+def overrides(arch: str, shape: str) -> dict:
+    return dict(DRYRUN_OVERRIDES.get((arch, shape), {}))
 
 
 def reduced_config(arch: str):

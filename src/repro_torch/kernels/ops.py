@@ -18,6 +18,16 @@ its output is checked for NaN.  A failed check raises
 CPU through autograd over the plain version, on CUDA through
 :class:`_BagFunction`, whose backward is the hand-written
 ``embedding_bag_backward`` kernel.
+
+A ``meta`` table (the dry-run, ``launch/dryrun.py``) takes a shape-only
+route: two custom ops, ``repro_torch::bag_shape`` and its gradient
+``repro_torch::bag_grad_shape``, whose fake implementations give the
+output's shape and dtype and whose real ones raise, so no device ever
+runs them.  :func:`register_meta_sharding` gives them ``DTensor``
+sharding rules (a table replicated, or sharded by rows with the bags'
+partial sums reduced after), which only these meta ops carry: a sharded
+table on a real device still reaches the kernel's wrapper, which takes
+plain tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +53,68 @@ KERNELS = {
     "embedding_bag": _eb.embedding_bag,
     "embedding_bag_backward": _eb.embedding_bag_backward,
 }
+
+
+@torch.library.custom_op("repro_torch::bag_shape", mutates_args=())
+def _bag_shape(table: torch.Tensor, indices: torch.Tensor,
+               offsets: torch.Tensor, mode: str) -> torch.Tensor:
+    raise RuntimeError("repro_torch::bag_shape is a shape-only route: "
+                       "meta tensors only")
+
+
+@_bag_shape.register_fake
+def _(table, indices, offsets, mode):
+    return table.new_empty((offsets.shape[0] - 1, table.shape[1]),
+                           dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::bag_grad_shape", mutates_args=())
+def _bag_grad_shape(grad: torch.Tensor, table: torch.Tensor,
+                    indices: torch.Tensor, offsets: torch.Tensor,
+                    mode: str) -> torch.Tensor:
+    raise RuntimeError("repro_torch::bag_grad_shape is a shape-only route: "
+                       "meta tensors only")
+
+
+@_bag_grad_shape.register_fake
+def _(grad, table, indices, offsets, mode):
+    return torch.empty_like(table)
+
+
+def _bag_shape_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3])
+    ctx.mode = inputs[3]
+
+
+def _bag_shape_backward(ctx, grad):
+    table, indices, offsets = ctx.saved_tensors
+    return (_bag_grad_shape(grad, table, indices, offsets, ctx.mode),
+            None, None, None)
+
+
+_bag_shape.register_autograd(_bag_shape_backward,
+                             setup_context=_bag_shape_setup)
+
+
+def register_meta_sharding() -> None:
+    """``DTensor`` rules of the shape-only bag ops (idempotent): the
+    indices and offsets replicated; the table replicated (the bags
+    replicated), or sharded by rows (each rank sums its own rows: the
+    bags are partial sums, and the table's gradient is sharded as the
+    table is)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R = Replicate()
+
+    @register_sharding(torch.ops.repro_torch.bag_shape.default)
+    def _bag_rule(table, indices, offsets, mode):
+        return [([R], [R, R, R, None]),
+                ([Partial()], [Shard(0), R, R, None])]
+
+    @register_sharding(torch.ops.repro_torch.bag_grad_shape.default)
+    def _bag_grad_rule(grad, table, indices, offsets, mode):
+        return [([R], [R, R, R, R, None]),
+                ([Shard(0)], [R, Shard(0), R, R, None])]
 
 
 def _on_cuda(name: str, t) -> bool:
@@ -148,6 +220,8 @@ def embedding_bag(table, indices, offsets, mode: str = "sum"):
     """CSR bags of ``table`` rows (int32 ``indices``, int32[B+1]
     ``offsets``; ids clipped into the table): fp32 [B, D] sums, or means
     with ``mode="mean"``; differentiable in ``table``."""
+    if table.device.type == "meta":
+        return _bag_shape(table, indices, offsets, mode)
     if _on_cuda("embedding_bag", table):
         indices, offsets = indices.contiguous(), offsets.contiguous()
         if table.requires_grad and torch.is_grad_enabled():

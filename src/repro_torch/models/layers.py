@@ -38,12 +38,28 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
+def make_generator(device, seed: int) -> torch.Generator:
+    """A seeded generator for draws on ``device``.  The ``meta`` device
+    has no generator of its own; a CPU one stands in (a draw on ``meta``
+    makes a shape and consumes nothing)."""
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def draw_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where an init draws: ``device`` when given, else the generator's."""
+    return generator.device if device is None else torch.device(device)
+
+
 def dense_init(generator: torch.Generator, shape, dtype,
-               scale: Optional[float] = None):
+               scale: Optional[float] = None, device=None):
     """Normal(0, 1) * scale (default ``fan_in ** -0.5``, fan_in =
-    ``shape[-2]``), drawn in fp32 on the generator's device."""
+    ``shape[-2]``), drawn in fp32 on ``device`` (by default the
+    generator's)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
+                    device=draw_device(generator, device))
     return (w * scale).to(dtype)

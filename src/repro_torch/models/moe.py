@@ -13,8 +13,9 @@ Dispatch, as in the reference:
 
 The fp32 scatter-add of a token's k expert outputs has no fixed order on
 CUDA (``index_add_``): results agree with the reference within a
-tolerance, not bit for bit.  The sharding specs (``moe_layer_specs``)
-wait for ROADMAP.md Queue 1 item 12.6.
+tolerance, not bit for bit.  :func:`moe_layer_specs` gives the
+reference's logical specs, and the dispatch calls ``constrain`` at the
+reference's places (a no-op on one device).
 """
 from __future__ import annotations
 
@@ -22,32 +23,65 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 
 
-def init_moe_layer(cfg: LMConfig, gen: torch.Generator) -> dict:
+def init_moe_layer(cfg: LMConfig, gen: torch.Generator,
+                   device=None) -> dict:
     """One layer's MoE parameters: the router in fp32 whatever
     ``param_dtype`` says, ``moe_ep_pad`` experts (padded experts are
     never routed to) and, with shared experts, one fused shared SwiGLU."""
     dt = getattr(torch, cfg.param_dtype)
     d, fe = cfg.d_model, cfg.moe_d_ff
     E = cfg.moe_ep_pad or cfg.n_experts
+
+    def dense(shape, dtype=dt, scale=None):
+        return L.dense_init(gen, shape, dtype, scale, device=device)
+
     p = {
-        "router": L.dense_init(gen, (d, E), torch.float32),
+        "router": dense((d, E), torch.float32),
         "experts": {
-            "w_gate": L.dense_init(gen, (E, d, fe), dt),
-            "w_up": L.dense_init(gen, (E, d, fe), dt),
-            "w_down": L.dense_init(gen, (E, fe, d), dt, scale=fe ** -0.5),
+            "w_gate": dense((E, d, fe)),
+            "w_up": dense((E, d, fe)),
+            "w_down": dense((E, fe, d), scale=fe ** -0.5),
         },
     }
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * fe
         p["shared"] = {
-            "w_gate": L.dense_init(gen, (d, fs), dt),
-            "w_up": L.dense_init(gen, (d, fs), dt),
-            "w_down": L.dense_init(gen, (fs, d), dt, scale=fs ** -0.5),
+            "w_gate": dense((d, fs)),
+            "w_up": dense((d, fs)),
+            "w_down": dense((fs, d), scale=fs ** -0.5),
         }
     return p
+
+
+def moe_layer_specs(cfg: LMConfig, mesh_model_size: int | None = None) -> dict:
+    """Logical specs.  Experts go to 'model' (EP) when the expert count is
+    model-divisible (by 16 when no mesh size is given); otherwise the ffn
+    dim shards (TP within each expert)."""
+    ep = (cfg.moe_ep_pad or cfg.n_experts) % (mesh_model_size or 16) == 0
+    if ep:
+        experts = {
+            "w_gate": ("model", "fsdp", None),
+            "w_up": ("model", "fsdp", None),
+            "w_down": ("model", None, "fsdp"),
+        }
+    else:
+        experts = {
+            "w_gate": (None, "fsdp", "model"),
+            "w_up": (None, "fsdp", "model"),
+            "w_down": (None, "model", "fsdp"),
+        }
+    s = {"router": (None, None), "experts": experts}
+    if cfg.n_shared_experts:
+        s["shared"] = {
+            "w_gate": ("fsdp", "model"),
+            "w_up": ("fsdp", "model"),
+            "w_down": ("model", "fsdp"),
+        }
+    return s
 
 
 def _capacity(cfg: LMConfig, n_tokens: int) -> int:
@@ -102,29 +136,39 @@ def _dispatch(expert, gate, C: int, E: int):
     keep = rank < C
     dest = torch.where(keep, e_s * C + rank, E * C)              # sentinel
     # the sentinel column E * C takes every dropped pair and is cut off
-    slot_tok = torch.full((G, E * C + 1), T, dtype=torch.int64, device=dev)
-    slot_tok.scatter_(1, dest, t_s)
-    slot_gate = torch.zeros((G, E * C + 1), dtype=torch.float32, device=dev)
-    slot_gate.scatter_(1, dest, g_s)
+    # (out of place: a DTensor scatter cannot write into a plain tensor)
+    slot_tok = torch.full((G, E * C + 1), T, dtype=torch.int64,
+                          device=dev).scatter(1, dest, t_s)
+    slot_gate = torch.zeros((G, E * C + 1), dtype=torch.float32,
+                            device=dev).scatter(1, dest, g_s)
     return slot_tok[:, :-1], slot_gate[:, :-1], keep
 
 
-def _experts(x, slot_tok, slot_gate, we, n_e: int, C: int):
+def _experts(x, slot_tok, slot_gate, we, n_e: int, C: int,
+             grouped: bool = False):
     """Gather, the experts' SwiGLU and the weighted scatter back, for G
     groups at once.  x: [G, T, d]; slot maps [G, n_e * C].  Returns fp32
-    [G, T, d]."""
+    [G, T, d].  ``grouped``: the groups are the batch, and the [E, G*C,
+    ...] activations take the reference's batch and ffn annotations (its
+    [G, E, C, ...] layout has G outermost, as G*C has here)."""
     G, T, d = x.shape
     dev = x.device
+
+    def annotate(t, *logical):
+        return constrain(t, *logical) if grouped else t
+
     # one flat [G * (T + 1), d] source whose row T of each group is zero
     x_pad = torch.cat([x, x.new_zeros(G, 1, d)], 1).reshape(-1, d)
     rows = slot_tok + torch.arange(G, device=dev)[:, None] * (T + 1)
     rows = rows.reshape(G, n_e, C).transpose(0, 1).reshape(n_e, G * C)
-    xe = x_pad[rows]                                             # [E, G*C, d]
+    xe = annotate(x_pad[rows], None, "batch", None)              # [E, G*C, d]
     h = F.silu(torch.bmm(xe, we["w_gate"])) * torch.bmm(xe, we["w_up"])
-    ye = torch.bmm(h, we["w_down"])                              # [E, G*C, d]
+    h = annotate(h, None, "batch", "model")
+    ye = annotate(torch.bmm(h, we["w_down"]), None, "batch", None)
     gates = slot_gate.reshape(G, n_e, C).transpose(0, 1).reshape(-1, 1)
-    y = torch.zeros((G * (T + 1), d), dtype=torch.float32, device=dev)
-    y.index_add_(0, rows.reshape(-1), ye.reshape(-1, d).float() * gates)
+    y = torch.zeros((G * (T + 1), d), dtype=torch.float32,
+                    device=dev).index_add(0, rows.reshape(-1),
+                                          ye.reshape(-1, d).float() * gates)
     return y.reshape(G, T + 1, d)[:, :T]
 
 
@@ -144,7 +188,10 @@ def _moe_ffn_grouped(x, p, cfg: LMConfig):
     C = _capacity(cfg, T)
     probs, gate, expert = _route(x, p["router"], cfg)
     slot_tok, slot_gate, keep = _dispatch(expert, gate, C, Ep)
-    y = _experts(x, slot_tok, slot_gate, p["experts"], Ep, C).to(x.dtype)
+    slot_tok = constrain(slot_tok, "batch", None)
+    slot_gate = constrain(slot_gate, "batch", None)
+    y = _experts(x, slot_tok, slot_gate, p["experts"], Ep, C, grouped=True)
+    y = constrain(y.to(x.dtype), "batch", None, None)
     if cfg.n_shared_experts:
         y = y + L.swiglu(x, **p["shared"])
     return y, _metrics(probs, expert, keep, E, G * T * k)

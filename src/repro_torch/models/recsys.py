@@ -11,15 +11,16 @@ of many rows.  Bags return fp32; :func:`embedding_lookup` casts back to
 the table's dtype, as the reference's ``jnp.take`` returns it (exact:
 the values came from that dtype).
 
-There is one device, so the reference's sharding constraints are gone;
-the ``*_param_specs`` helpers wait for ROADMAP.md Queue 1 item 12 part
-6.  The forwards train as they are: ``ops.embedding_bag`` is
-differentiable in the table (on the card through the
-``embedding_bag_backward`` kernel), and :func:`bce_loss` is the
-reference's.  DIEN's two ``lax.scan``s are Python loops over T with the
-same masking.  JAX promotes a mixed-dtype product
-(fp32 activations @ bf16 weights -> fp32) where torch raises, so every
-product here casts both operands to the promoted dtype (:func:`_dot`).
+The reference's sharding annotations are kept: the ``*_param_specs``
+helpers (the third entry of :data:`FORWARDS`) give each leaf's logical
+spec, and the forwards call ``dist.sharding.constrain`` where the
+reference does (a no-op on one device). The forwards train as they are:
+``ops.embedding_bag`` is differentiable in the table (on the card
+through the ``embedding_bag_backward`` kernel), and :func:`bce_loss` is
+the reference's. DIEN's two ``lax.scan``s are Python loops over T with
+the same masking. JAX promotes a mixed-dtype product (fp32 activations @
+bf16 weights -> fp32) where torch raises, so every product here casts
+both operands to the promoted dtype (:func:`_dot`).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -52,19 +54,22 @@ def padded_rows(total_rows: int) -> int:
 
 
 def init_table(gen: torch.Generator, total_rows: int, dim: int,
-               dtype) -> torch.Tensor:
+               dtype, device=None) -> torch.Tensor:
     """Normal(0, 0.01) rows, ``padded_rows(total_rows)`` of them, drawn in
     fp32 in chunks of 2**26 values and cast chunk by chunk, so no fp32
     copy of a narrower table ever exists (DLRM-MLPerf's bf16 table is
-    44.8 GiB)."""
+    44.8 GiB).  On ``meta`` the table is a shape alone."""
+    dev = L.draw_device(gen, device)
     rows = padded_rows(total_rows)
-    out = torch.empty((rows, dim), dtype=dtype, device=gen.device)
+    out = torch.empty((rows, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
     step = max(1, (1 << 26) // max(dim, 1))
     for s in range(0, rows, step):
         n = min(step, rows - s)
         out[s:s + n] = torch.randn((n, dim), generator=gen,
                                    dtype=torch.float32,
-                                   device=gen.device).mul_(0.01)
+                                   device=dev).mul_(0.01)
     return out
 
 
@@ -98,7 +103,11 @@ def embedding_bag(table, indices, segments, num_bags, mode="sum"):
     seg = segments.long()
     seg = torch.where((seg >= 0) & (seg < num_bags), seg, num_bags)
     order = torch.argsort(seg, stable=True)
-    counts = torch.bincount(seg, minlength=num_bags + 1)
+    # a scatter-add, not ``bincount``: the same counts, and it has a
+    # shape on ``meta``
+    counts = torch.zeros(num_bags + 1, dtype=torch.int64,
+                         device=seg.device).scatter_add_(
+        0, seg, torch.ones_like(seg))
     csr = torch.zeros(num_bags + 2, dtype=torch.int32, device=table.device)
     csr[1:] = torch.cumsum(counts, 0)
     out = ops.embedding_bag(table, indices[order].to(torch.int32), csr, mode)
@@ -120,11 +129,16 @@ def _dot(a, b):
     return a.to(dt) @ b.to(dt)
 
 
-def _mlp_init(gen, dims: Tuple[int, ...], dtype):
-    return [{"w": L.dense_init(gen, (dims[i], dims[i + 1]), dtype),
-             "b": torch.zeros((dims[i + 1],), dtype=dtype,
-                              device=gen.device)}
+def _mlp_init(gen, dims: Tuple[int, ...], dtype, device=None):
+    dev = L.draw_device(gen, device)
+    return [{"w": L.dense_init(gen, (dims[i], dims[i + 1]), dtype,
+                               device=dev),
+             "b": torch.zeros((dims[i + 1],), dtype=dtype, device=dev)}
             for i in range(len(dims) - 1)]
+
+
+def _mlp_specs(dims):
+    return [{"w": (None, None), "b": (None,)} for _ in range(len(dims) - 1)]
 
 
 def _mlp_apply(layers_, x, final_act=False):
@@ -150,16 +164,23 @@ def _dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # DLRM (dot interaction)  [arXiv:1906.00091]
 # ---------------------------------------------------------------------------
-def init_dlrm(cfg: RecsysConfig, gen: torch.Generator) -> dict:
+def init_dlrm(cfg: RecsysConfig, gen: torch.Generator,
+              device=None) -> dict:
     dt = _dtype(cfg.param_dtype)
     n_f = cfg.n_sparse + 1
     n_inter = n_f * (n_f - 1) // 2
     top_in = cfg.bot_mlp[-1] + n_inter
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt),
-        "bot": _mlp_init(gen, cfg.bot_mlp, dt),
-        "top": _mlp_init(gen, (top_in, *cfg.top_mlp), dt),
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, device),
+        "bot": _mlp_init(gen, cfg.bot_mlp, dt, device),
+        "top": _mlp_init(gen, (top_in, *cfg.top_mlp), dt, device),
     }
+
+
+def dlrm_param_specs(cfg: RecsysConfig) -> dict:
+    return {"table": ("rows", None),
+            "bot": _mlp_specs(cfg.bot_mlp),
+            "top": _mlp_specs((0, *cfg.top_mlp))}
 
 
 def dlrm_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
@@ -167,34 +188,52 @@ def dlrm_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
     cdt = _dtype(cfg.compute_dtype)
     d = _mlp_apply(params["bot"], batch.dense.to(cdt), final_act=True)
     e = embedding_lookup(params["table"], batch.sparse, offsets)  # [B,F,D]
+    e = constrain(e, "batch", None, None)
     feats = torch.cat([d[:, None, :].to(cdt), e.to(cdt)], dim=1)
     inter = torch.bmm(feats, feats.transpose(1, 2))
     f = feats.shape[1]
     iu, ju = torch.triu_indices(f, f, offset=1, device=feats.device)
-    z = torch.cat([d.to(cdt), inter[:, iu, ju]], dim=-1)
+    # the upper triangle by one flat gather (``inter[:, iu, ju]``'s
+    # values; its backward is an ``index_add``, where the advanced
+    # index's is an ``index_put`` with a None index, which DTensor's
+    # strategy in torch 2.11 cannot take)
+    upper = inter.reshape(inter.shape[0], f * f).index_select(1, iu * f + ju)
+    z = torch.cat([d.to(cdt), upper], dim=-1)
     return _mlp_apply(params["top"], z)[:, 0]
 
 
 # ---------------------------------------------------------------------------
 # DCN-v2 (cross network)  [arXiv:2008.13535]
 # ---------------------------------------------------------------------------
-def init_dcn(cfg: RecsysConfig, gen: torch.Generator) -> dict:
+def init_dcn(cfg: RecsysConfig, gen: torch.Generator, device=None) -> dict:
     dt = _dtype(cfg.param_dtype)
+    dev = L.draw_device(gen, device)
     d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt),
-        "cross": [{"w": L.dense_init(gen, (d0, d0), dt),
-                   "b": torch.zeros((d0,), dtype=dt, device=gen.device)}
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev),
+        "cross": [{"w": L.dense_init(gen, (d0, d0), dt, device=dev),
+                   "b": torch.zeros((d0,), dtype=dt, device=dev)}
                   for _ in range(cfg.n_cross_layers)],
-        "mlp": _mlp_init(gen, (d0, *cfg.top_mlp), dt),
-        "head": L.dense_init(gen, (cfg.top_mlp[-1] + d0, 1), dt),
+        "mlp": _mlp_init(gen, (d0, *cfg.top_mlp), dt, dev),
+        "head": L.dense_init(gen, (cfg.top_mlp[-1] + d0, 1), dt, device=dev),
+    }
+
+
+def dcn_param_specs(cfg: RecsysConfig) -> dict:
+    return {
+        "table": ("rows", None),
+        "cross": [{"w": (None, None), "b": (None,)}
+                  for _ in range(cfg.n_cross_layers)],
+        "mlp": _mlp_specs((0, *cfg.top_mlp)),
+        "head": (None, None),
     }
 
 
 def dcn_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
                 offsets) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
-    e = embedding_lookup(params["table"], batch.sparse, offsets).to(cdt)
+    e = embedding_lookup(params["table"], batch.sparse, offsets)
+    e = constrain(e, "batch", None, None).to(cdt)
     x0 = torch.cat([batch.dense.to(cdt), e.reshape(e.shape[0], -1)], dim=-1)
     x = x0
     for p in params["cross"]:
@@ -207,29 +246,43 @@ def dcn_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
 # ---------------------------------------------------------------------------
 # xDeepFM (Compressed Interaction Network)  [arXiv:1803.05170]
 # ---------------------------------------------------------------------------
-def init_xdeepfm(cfg: RecsysConfig, gen: torch.Generator) -> dict:
+def init_xdeepfm(cfg: RecsysConfig, gen: torch.Generator,
+                 device=None) -> dict:
     dt = _dtype(cfg.param_dtype)
+    dev = L.draw_device(gen, device)
     m = cfg.n_sparse
     cin = []
     h_prev = m
-    table = init_table(gen, cfg.total_rows, cfg.embed_dim, dt)
+    table = init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev)
     for h in cfg.cin_layers:
-        cin.append(L.dense_init(gen, (h_prev, m, h), dt))
+        cin.append(L.dense_init(gen, (h_prev, m, h), dt, device=dev))
         h_prev = h
     return {
         "table": table,
-        "linear": init_table(gen, cfg.total_rows, 1, dt),
+        "linear": init_table(gen, cfg.total_rows, 1, dt, dev),
         "cin": cin,
-        "dnn": _mlp_init(gen, (m * cfg.embed_dim, *cfg.top_mlp), dt),
+        "dnn": _mlp_init(gen, (m * cfg.embed_dim, *cfg.top_mlp), dt, dev),
         "head": L.dense_init(
-            gen, (sum(cfg.cin_layers) + cfg.top_mlp[-1] + 1, 1), dt),
+            gen, (sum(cfg.cin_layers) + cfg.top_mlp[-1] + 1, 1), dt,
+            device=dev),
+    }
+
+
+def xdeepfm_param_specs(cfg: RecsysConfig) -> dict:
+    return {
+        "table": ("rows", None),
+        "linear": ("rows", None),
+        "cin": [(None, None, None) for _ in cfg.cin_layers],
+        "dnn": _mlp_specs((0, *cfg.top_mlp)),
+        "head": (None, None),
     }
 
 
 def xdeepfm_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
                     offsets) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
-    x0 = embedding_lookup(params["table"], batch.sparse, offsets).to(cdt)
+    x0 = embedding_lookup(params["table"], batch.sparse, offsets)
+    x0 = constrain(x0, "batch", None, None).to(cdt)        # [B, m, D]
     # CIN
     xk = x0
     pooled = []
@@ -252,11 +305,12 @@ def xdeepfm_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
 # ---------------------------------------------------------------------------
 # DIEN (interest evolution: GRU + attention + AUGRU)  [arXiv:1809.03672]
 # ---------------------------------------------------------------------------
-def _gru_init(gen, d_in, d_h, dtype):
+def _gru_init(gen, d_in, d_h, dtype, device=None):
+    dev = L.draw_device(gen, device)
     return {
-        "wi": L.dense_init(gen, (d_in, 3 * d_h), dtype),
-        "wh": L.dense_init(gen, (d_h, 3 * d_h), dtype),
-        "b": torch.zeros((3 * d_h,), dtype=dtype, device=gen.device),
+        "wi": L.dense_init(gen, (d_in, 3 * d_h), dtype, device=dev),
+        "wh": L.dense_init(gen, (d_h, 3 * d_h), dtype, device=dev),
+        "b": torch.zeros((3 * d_h,), dtype=dtype, device=dev),
     }
 
 
@@ -275,16 +329,25 @@ def _gru_cell(p, h, x, a=None):
     return (1.0 - u) * h + u * cand
 
 
-def init_dien(cfg: RecsysConfig, gen: torch.Generator) -> dict:
+def init_dien(cfg: RecsysConfig, gen: torch.Generator, device=None) -> dict:
     dt = _dtype(cfg.param_dtype)
+    dev = L.draw_device(gen, device)
     d_e = cfg.embed_dim * 2  # item + category embedding
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt),
-        "gru": _gru_init(gen, d_e, cfg.gru_dim, dt),
-        "augru": _gru_init(gen, d_e, cfg.gru_dim, dt),
-        "att": L.dense_init(gen, (cfg.gru_dim + d_e, 1), dt),
-        "mlp": _mlp_init(gen, (cfg.gru_dim + 2 * d_e, *cfg.top_mlp, 1), dt),
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev),
+        "gru": _gru_init(gen, d_e, cfg.gru_dim, dt, dev),
+        "augru": _gru_init(gen, d_e, cfg.gru_dim, dt, dev),
+        "att": L.dense_init(gen, (cfg.gru_dim + d_e, 1), dt, device=dev),
+        "mlp": _mlp_init(gen, (cfg.gru_dim + 2 * d_e, *cfg.top_mlp, 1), dt,
+                         dev),
     }
+
+
+def dien_param_specs(cfg: RecsysConfig) -> dict:
+    g = {"wi": (None, None), "wh": (None, None), "b": (None,)}
+    return {"table": ("rows", None), "gru": dict(g), "augru": dict(g),
+            "att": (None, None),
+            "mlp": _mlp_specs((0, *cfg.top_mlp, 1))}
 
 
 def dien_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
@@ -298,6 +361,7 @@ def dien_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
     tgt = tgt.reshape(B, -1).to(cdt)                            # [B, 2D]
     he = embedding_lookup(table, batch.hist.reshape(B * T, 2), offsets)
     he = he.reshape(B, T, -1).to(cdt)                           # [B, T, 2D]
+    he = constrain(he, "batch", None, None)
     mask = (torch.arange(T, device=he.device)[None, :]
             < batch.hist_len[:, None])
 
@@ -356,8 +420,8 @@ def bce_loss(logits, labels):
 
 
 FORWARDS = {
-    "dot": (init_dlrm, dlrm_forward),
-    "cross": (init_dcn, dcn_forward),
-    "cin": (init_xdeepfm, xdeepfm_forward),
-    "augru": (init_dien, dien_forward),
+    "dot": (init_dlrm, dlrm_forward, dlrm_param_specs),
+    "cross": (init_dcn, dcn_forward, dcn_param_specs),
+    "cin": (init_xdeepfm, xdeepfm_forward, xdeepfm_param_specs),
+    "augru": (init_dien, dien_forward, dien_param_specs),
 }

@@ -13,8 +13,9 @@ Ids are in range: every ``src``, ``dst`` and ``atom_type`` in
 always emits them.  On the CPU an id out of range raises; the reference
 fills NaN (``jnp.take``), drops the row (``segment_sum``) or clamps (the
 atom table), and the port imitates none of it (ROADMAP.md Queue 3).
-``schnet_param_specs`` (sharding) waits for ROADMAP.md Queue 1 item 12
-part 6.
+:func:`schnet_param_specs` gives the reference's logical specs (all
+replicated: the scale axis is the edge stream, annotated ``edges`` in
+the forward).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 
 _LOG2 = math.log(2.0)
@@ -93,6 +95,18 @@ def init_schnet(cfg: GNNConfig, gen: torch.Generator, d_feat: int,
     return params
 
 
+def schnet_param_specs(cfg: GNNConfig) -> dict:
+    """Logical specs of :func:`init_schnet`'s tree: d_hidden is 64, so
+    everything replicates (the reference's)."""
+    rep2, rep1 = (None, None), (None,)
+    inter = {"filt1": rep2, "filt1_b": rep1, "filt2": rep2, "filt2_b": rep1,
+             "in2f": rep2, "f2out": rep2, "atom1": rep2, "atom2": rep2}
+    return {
+        "embed_feat": rep2, "embed_atom": rep2, "out1": rep2, "out2": rep2,
+        "interactions": [dict(inter) for _ in range(cfg.n_interactions)],
+    }
+
+
 class GraphBatch(NamedTuple):
     """Padded graph batch.  For featureful graphs, node_feat is float
     [N, d_feat]; for molecules, atom_type int [N].  edge_dist carries the
@@ -114,7 +128,9 @@ def _mm(x, w, cdt):
 
 
 def _segment_sum(data, segment_ids, num_segments: int):
-    return data.new_zeros((num_segments,) + data.shape[1:]).index_add_(
+    # out of place: on a DTensor the sum's placement differs from the
+    # zeros' (edge-sharded messages give partial sums)
+    return data.new_zeros((num_segments,) + data.shape[1:]).index_add(
         0, segment_ids, data)
 
 
@@ -129,6 +145,7 @@ def schnet_forward(params, g: GraphBatch, cfg: GNNConfig,
         x = params["embed_atom"].to(cdt).index_select(0, g.atom_type)
     n_nodes = x.shape[0]
     rbf = rbf_expand(g.edge_dist.to(cdt), cfg.n_rbf, cfg.cutoff, centers)
+    rbf = constrain(rbf, "edges", None)
 
     for p in params["interactions"]:
         w = ssp(_mm(rbf, p["filt1"], cdt) + p["filt1_b"].to(cdt))

@@ -12,9 +12,13 @@ buffer of ``sliding_window`` slots; with ``kv_quant`` the cache is int8
 with a per-(token, head) fp32 scale.  MoE layers dispatch through
 :mod:`repro_torch.models.moe`.
 
-There is one device, so the reference's sharding constraints and specs
-are gone (ROADMAP.md Queue 1 item 12.6).  With ``cfg.remat``, autograd
-on and parameters that need a gradient, ``lm_forward`` runs each block
+The reference's sharding annotations are kept: :func:`lm_param_specs`
+and :func:`decode_cache_specs` give the logical spec of every leaf, and
+the forward paths call ``dist.sharding.constrain`` where the reference
+does, which redistributes a ``DTensor`` under an active rule table and
+returns a plain tensor itself (one device: no change).  With
+``cfg.remat``, autograd on and parameters that need a gradient,
+``lm_forward`` runs each block
 under ``torch.utils.checkpoint.checkpoint`` (the reference's
 ``jax.checkpoint``), so a block's attention logits are recomputed in the
 backward instead of kept; it takes each stack's layers by one
@@ -30,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
@@ -42,33 +47,56 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_layer(cfg: LMConfig, gen: torch.Generator) -> dict:
+def _init_layer(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     dt = dtype_of(cfg.param_dtype)
+    dev = L.draw_device(gen, device)
     d, dh = cfg.d_model, cfg.d_head
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     p = {
-        "attn_norm": torch.zeros((d,), dtype=dt, device=gen.device),
-        "mlp_norm": torch.zeros((d,), dtype=dt, device=gen.device),
-        "wq": L.dense_init(gen, (d, hq * dh), dt),
-        "wk": L.dense_init(gen, (d, hkv * dh), dt),
-        "wv": L.dense_init(gen, (d, hkv * dh), dt),
-        "wo": L.dense_init(gen, (hq * dh, d), dt),
+        "attn_norm": torch.zeros((d,), dtype=dt, device=dev),
+        "mlp_norm": torch.zeros((d,), dtype=dt, device=dev),
+        "wq": L.dense_init(gen, (d, hq * dh), dt, device=dev),
+        "wk": L.dense_init(gen, (d, hkv * dh), dt, device=dev),
+        "wv": L.dense_init(gen, (d, hkv * dh), dt, device=dev),
+        "wo": L.dense_init(gen, (hq * dh, d), dt, device=dev),
     }
     if cfg.moe:
-        p["moe"] = M.init_moe_layer(cfg, gen)
+        p["moe"] = M.init_moe_layer(cfg, gen, device=dev)
     else:
-        p["mlp"] = {"w_gate": L.dense_init(gen, (d, f), dt),
-                    "w_up": L.dense_init(gen, (d, f), dt),
-                    "w_down": L.dense_init(gen, (f, d), dt)}
+        p["mlp"] = {"w_gate": L.dense_init(gen, (d, f), dt, device=dev),
+                    "w_up": L.dense_init(gen, (d, f), dt, device=dev),
+                    "w_down": L.dense_init(gen, (f, d), dt, device=dev)}
     return p
 
 
-def _stack_init(cfg: LMConfig, gen: torch.Generator, n: int) -> dict:
+def _layer_specs(cfg: LMConfig) -> dict:
+    """Logical specs of one layer's leaves (the reference's)."""
+    s = {
+        "attn_norm": (None,),
+        "mlp_norm": (None,),
+        "wq": ("fsdp", "model"),
+        "wk": ("fsdp", "model"),
+        "wv": ("fsdp", "model"),
+        "wo": ("model", "fsdp"),
+    }
+    if cfg.moe:
+        s["moe"] = M.moe_layer_specs(cfg)
+    else:
+        s["mlp"] = {
+            "w_gate": ("fsdp", "model"),
+            "w_up": ("fsdp", "model"),
+            "w_down": ("model", "fsdp"),
+        }
+    return s
+
+
+def _stack_init(cfg: LMConfig, gen: torch.Generator, n: int,
+                device=None) -> dict:
     """``n`` layers' parameters stacked ``[n, ...]``, drawn one layer at a
     time (the reference vmaps ``_init_layer``), so the fp32 draw is one
     layer's, never the stack's: Qwen2-MoE's expert stack would be 16.6 GB
     in fp32."""
-    first = _init_layer(cfg, gen)
+    first = _init_layer(cfg, gen, device)
 
     def alloc(node):
         if isinstance(node, dict):
@@ -88,7 +116,7 @@ def _stack_init(cfg: LMConfig, gen: torch.Generator, n: int) -> dict:
     stack = alloc(first)
     del first
     for i in range(1, n):
-        put(stack, _init_layer(cfg, gen), i)
+        put(stack, _init_layer(cfg, gen, device), i)
     return stack
 
 
@@ -109,28 +137,53 @@ def init_lm(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters of the shapes, dtypes and scales of the
     reference's ``init_lm`` (its ``jax.random`` stream cannot be
     reproduced; :func:`repro_torch.core.convert.lm_params_from_numpy`
-    carries a reference tree across instead)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return _init_tree(cfg, gen)
+    carries a reference tree across instead).  ``device="meta"`` gives
+    the shapes alone (drawn from a CPU generator, allocating nothing)."""
+    gen = L.make_generator(device, seed)
+    return _init_tree(cfg, gen, device)
 
 
-def _init_tree(cfg: LMConfig, gen: torch.Generator) -> dict:
+def _init_tree(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     dt = dtype_of(cfg.param_dtype)
+    dev = L.draw_device(gen, device)
     n_loc, n_glob = _n_local_global(cfg)
     params = {
-        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=1.0),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
-                                  device=gen.device),
+        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, scale=1.0,
+                              device=dev),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dt)
+        params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dt,
+                                         device=dev)
     if n_loc:
-        params["local_layers"] = _stack_init(cfg, gen, n_loc)
-        params["global_layers"] = _stack_init(cfg, gen, n_glob)
+        params["local_layers"] = _stack_init(cfg, gen, n_loc, dev)
+        params["global_layers"] = _stack_init(cfg, gen, n_glob, dev)
     else:
-        params["layers"] = _stack_init(cfg, gen, cfg.n_layers)
+        params["layers"] = _stack_init(cfg, gen, cfg.n_layers, dev)
     return params
+
+
+def lm_param_specs(cfg: LMConfig) -> dict:
+    """Logical specs of :func:`init_lm`'s tree; a stacked layer leaf gets
+    a leading ``None`` (the layer dim)."""
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return (None, *tree)
+    layer = _layer_specs(cfg)
+    n_loc, _ = _n_local_global(cfg)
+    specs = {
+        "embed": ("model", "fsdp"),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "model")
+    if n_loc:
+        specs["local_layers"] = stacked(layer)
+        specs["global_layers"] = stacked(layer)
+    else:
+        specs["layers"] = stacked(layer)
+    return specs
 
 
 def unbind_layers(stack: dict) -> list:
@@ -205,9 +258,11 @@ def chunked_attention(q, k, v, *, window: int, q_chunk: int,
     vt = v.permute(0, 2, 1, 3).contiguous()          # [B, Hkv, T, D]
     k_pos = torch.arange(T, device=q.device)
     # under autograd nothing is written in place into a view: autograd
-    # would copy the whole base for each such write in the backward
-    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad)
+    # would copy the whole base for each such write in the backward; nor
+    # into a DTensor, whose placements an in-place write may not keep
+    # (the same values either way)
+    grad = hasattr(q, "placements") or (torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad))
     out = [] if grad else torch.empty_like(q)
     for c in range(S // q_chunk):
         s0 = c * q_chunk
@@ -265,10 +320,14 @@ def block_forward(p, x, cfg: LMConfig, *, window: int, positions,
     (a local layer's window)."""
     h = L.rms_norm(x, p["attn_norm"])
     q, k, v = _project_qkv(p, h, cfg, positions)
+    # head dim takes TP; under SP the seq dim yields here (Megatron-SP)
+    q = constrain(q, "batch", None, "model", None)
     attn = chunked_attention(q, k, v, window=window, q_chunk=q_chunk)
     x = x + (attn.reshape(*x.shape[:2], -1) @ p["wo"])
+    x = constrain(x, "batch", "seq", None)
     h = L.rms_norm(x, p["mlp_norm"])
     x = x + _ffn(p, h, cfg)
+    x = constrain(x, "batch", "seq", None)
     if not return_kv:
         return x
     if kv_keep:
@@ -286,6 +345,7 @@ def _embed(params, tokens, cfg: LMConfig):
     # in a fixed order on the CPU, and on CUDA under deterministic mode
     x = torch.index_select(params["embed"].to(cdt), 0,
                            tokens.reshape(-1).long()).reshape(B, S, -1)
+    x = constrain(x, "batch", "seq", None)
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions, cdt
 
@@ -306,7 +366,7 @@ def lm_forward(params, tokens, cfg: LMConfig, q_chunk: int = 512):
             x = checkpoint(block_forward, p, x, use_reentrant=False, **kw)
         else:
             x = block_forward(p, x, **kw)
-    return _head(params, cfg, x)
+    return constrain(_head(params, cfg, x), "batch", None, "model")
 
 
 def lm_loss(params, tokens, cfg: LMConfig, q_chunk: int = 512):
@@ -315,8 +375,10 @@ def lm_loss(params, tokens, cfg: LMConfig, q_chunk: int = 512):
     logits = logits[:, :-1].float()
     labels = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    # the gathered [B, S-1, 1] is kept 3-D: the same mean, and a DTensor
+    # gathered along a vocab-sharded dim reduces its partial values there
+    gold = torch.gather(logits, -1, labels[..., None])
+    return torch.mean(logz[..., None] - gold)
 
 
 def lm_prefill(params, tokens, cfg: LMConfig, q_chunk: int = 512):
@@ -349,7 +411,8 @@ def lm_prefill(params, tokens, cfg: LMConfig, q_chunk: int = 512):
         kc[i], vc[i] = k, v
         del k, v
     logits = _head(params, cfg, x[:, -1]).float()
-    return logits, DecodeCache(k=kg, v=vg, k_loc=kl, v_loc=vl)
+    return (constrain(logits, "batch", "model"),
+            DecodeCache(k=kg, v=vg, k_loc=kl, v_loc=vl))
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +454,22 @@ def init_decode_cache(cfg: LMConfig, batch: int, max_len: int,
             f["k_loc_sc"] = zeros(shape_l[:-1], torch.float32)
             f["v_loc_sc"] = zeros(shape_l[:-1], torch.float32)
     return DecodeCache(**f)
+
+
+def decode_cache_specs(cfg: LMConfig) -> DecodeCache:
+    """Logical specs of :func:`init_decode_cache`'s leaves, as a
+    ``DecodeCache`` of spec tuples (``None`` where the cache has no
+    leaf)."""
+    spec = (None, "batch", "kv_seq", None, None)
+    sc = (None, "batch", "kv_seq", None) if cfg.kv_quant else None
+    n_loc, _ = _n_local_global(cfg)
+    if n_loc:
+        # window caches are small; shard batch only
+        spec_l = (None, "batch", None, None, None)
+        sc_l = (None, "batch", None, None) if cfg.kv_quant else None
+        return DecodeCache(k=spec, v=spec, k_loc=spec_l, v_loc=spec_l,
+                           k_sc=sc, v_sc=sc, k_loc_sc=sc_l, v_loc_sc=sc_l)
+    return DecodeCache(k=spec, v=spec, k_sc=sc, v_sc=sc)
 
 
 def _decode_attn(q, k_cache, v_cache, pos: int, *, ring: bool,
@@ -483,4 +562,4 @@ def lm_decode_step(params, cache: DecodeCache, token, pos: int,
                    for n in names)
         x = _decode_block(p, x, kv, pos, cfg, ring=local)
     logits = _head(params, cfg, x[:, 0]).float()
-    return logits, cache
+    return constrain(logits, "batch", "model"), cache

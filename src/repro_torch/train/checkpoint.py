@@ -13,8 +13,16 @@ bf16 leaves are written as the reference writes them: their 16-bit
 pattern as numpy's void type ``V2``.  On restore a ``V2`` array read
 into a bf16 template is taken back as those bits; the reference's
 restore raises on it (``arr.astype(bfloat16)`` has no cast from ``V2``),
-so only the port restores a bf16 checkpoint.  ``restore(device=)``
-takes the place of the reference's ``shardings=``: there is one device.
+so only the port restores a bf16 checkpoint.
+
+``restore(mesh=, placements=)`` is the reference's ``shardings=``: each
+restored parameter is laid out on ``mesh`` with its placements (a tree of
+placement tuples shaped as the parameters, e.g. from
+``dist.sharding.tree_shardings``), so a checkpoint saved from one mesh
+restores onto another (elastic resharding).  ``restore(device=)`` puts
+every leaf on one device instead.  A ``DTensor`` leaf is saved whole
+(``full_tensor``, a collective: every rank calls ``save``), and only rank
+0 of a started process group writes the file.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 from repro_torch.train import tree as T
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if hasattr(t, "full_tensor"):          # a DTensor: gathered whole
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:          # the reference's bits, as V2
         return t.contiguous().view(torch.int16).numpy().view("V2")
@@ -78,6 +88,8 @@ class CheckpointManager:
             payload["opt_state"] = opt_state
         flat = _flatten(payload)
         fname = os.path.join(self.directory, f"step_{step:08d}.npz")
+        if _rank() != 0:
+            return fname
         fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as fh:
@@ -115,10 +127,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, params_template, opt_template=None,
-                device=None) -> Tuple[Any, Any]:
+                device=None, *, mesh=None, placements=None
+                ) -> Tuple[Any, Any]:
         """Restore onto templates (their tree, shapes and dtypes), each
-        leaf on ``device`` or, by default, on its template leaf's
-        device."""
+        leaf on ``device`` or, by default, on its template leaf's device;
+        with ``mesh`` and ``placements`` every parameter is then
+        distributed over ``mesh`` with its placements."""
         fname = os.path.join(self.directory, f"step_{step:08d}.npz")
         with np.load(fname) as npz:
             flat = {k: npz[k] for k in npz.files}
@@ -130,12 +144,32 @@ class CheckpointManager:
             of = {k[len("opt_state/"):]: v for k, v in flat.items()
                   if k.startswith("opt_state/")}
             opt_state = _unflatten(opt_template, of, device)
+        if placements is not None:
+            from torch.distributed.tensor import distribute_tensor
+            params = T.unflatten(params, [
+                distribute_tensor(t, mesh, _placement_at(placements, path))
+                for path, t in T.items_with_path(params)])
         return params, opt_state
 
     def restore_latest(self, params_template, opt_template=None,
-                       device=None):
+                       device=None, *, mesh=None, placements=None):
         step = self.latest_step()
         if step is None:
             return None, None, None
-        p, o = self.restore(step, params_template, opt_template, device)
+        p, o = self.restore(step, params_template, opt_template, device,
+                            mesh=mesh, placements=placements)
         return step, p, o
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _placement_at(placements, path):
+    """The placement tuple at a parameter's tree path."""
+    node = placements
+    for k in path:
+        node = node[int(k)] if isinstance(node, list) else node[k]
+    return tuple(node)

@@ -46,15 +46,18 @@ class AdamW:
             else p.dtype
 
     def init(self, params) -> AdamWState:
-        """Zero moments; ``step`` is an int32 scalar on the parameters'
-        device."""
+        """Zero moments (each laid out as its parameter: a ``DTensor``
+        parameter gets a ``DTensor`` moment with its placements); ``step``
+        is an int32 scalar on the parameters' device."""
         first = T.leaves(params)[0]
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=first.device),
-            mu=T.tree_map(lambda p: torch.zeros(p.shape, dtype=self._mdt(p),
-                                                device=p.device), params),
-            nu=T.tree_map(lambda p: torch.zeros(p.shape, dtype=self._mdt(p),
-                                                device=p.device), params))
+            mu=T.tree_map(lambda p: torch.zeros_like(
+                p, dtype=self._mdt(p), memory_format=torch.contiguous_format),
+                params),
+            nu=T.tree_map(lambda p: torch.zeros_like(
+                p, dtype=self._mdt(p), memory_format=torch.contiguous_format),
+                params))
 
     def schedule(self, step: torch.Tensor) -> torch.Tensor:
         """Learning rate at ``step`` (a tensor), fp32: linear warmup,

@@ -19,7 +19,9 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models import recsys as R
 from repro_torch.models import schnet as G
 from repro_torch.models import transformer as T
@@ -37,9 +39,19 @@ def _value_and_grad(loss_fn, params, batch):
     with torch.enable_grad():
         loss = loss_fn(tree.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree.unflatten(params, grads)
+
+
+def _laid_out_as(g, p):
+    """A ``DTensor`` gradient redistributed to its parameter's placements
+    (the gradient reduction over the data dims that a sharded step
+    needs); a plain tensor as it is."""
+    placements = getattr(p, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(p.device_mesh, placements)
 
 
 def _accumulate_grads(loss_fn, params, batches, n_micro: int,
@@ -57,11 +69,15 @@ def _accumulate_grads(loss_fn, params, batches, n_micro: int,
     parts = tree.tree_map(split, batches)
     acc_loss = torch.zeros((), dtype=torch.float32,
                            device=tree.leaves(params)[0].device)
-    acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+    acc = [torch.zeros_like(p, dtype=accum_dtype,
+                            memory_format=torch.contiguous_format)
            for p in tree.leaves(params)]
     for i in range(n_micro):
-        loss, grads = _value_and_grad(
-            loss_fn, params, tree.tree_map(lambda x: x[i], parts))
+        # each microbatch batch-sharded again (a no-op without rules: a
+        # sharded batch's rows of one microbatch lie on a few ranks)
+        loss, grads = _value_and_grad(loss_fn, params, tree.tree_map(
+            lambda x: constrain(x[i], "batch", *(None,) * (x.dim() - 2)),
+            parts))
         for a, g in zip(acc, tree.leaves(grads)):
             a += g.to(accum_dtype)
         del grads
@@ -114,7 +130,10 @@ def make_lm_decode_step(cfg: LMConfig) -> Callable:
     is updated in place."""
     def decode_step(params, cache: T.DecodeCache, token, pos):
         logits, cache = T.lm_decode_step(params, cache, token, pos, cfg)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        # the argmax over the whole vocab (a no-op on one device; DTensor's
+        # argmax over a vocab-sharded dim is not used)
+        whole = constrain(logits, "batch", None)
+        next_tok = torch.argmax(whole, dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, cache
     return decode_step
 
@@ -175,7 +194,7 @@ def make_recsys_forward(cfg: RecsysConfig, device="cuda") -> Callable:
     """``forward(params, batch) -> logits [B]`` for a batch dict of
     tensors on ``device`` (``sparse``, and ``dense`` or ``hist`` /
     ``hist_len`` as the arch needs)."""
-    _, fwd = R.FORWARDS[cfg.interaction]
+    fwd = R.FORWARDS[cfg.interaction][1]
     offsets = R.field_offsets(cfg.vocab_sizes, device)
 
     def forward(params, batch: dict):
@@ -191,7 +210,7 @@ def make_recsys_train_step(cfg: RecsysConfig, opt: AdamW,
     ``batch["label"]``; every table read backpropagates through
     ``ops.embedding_bag`` (on the card, the ``embedding_bag_backward``
     kernel)."""
-    _, fwd = R.FORWARDS[cfg.interaction]
+    fwd = R.FORWARDS[cfg.interaction][1]
     offsets = {}
 
     def loss_fn(params, batch):
@@ -239,11 +258,22 @@ def init_params_for(arch_entry, cfg, seed: int = 0, shape_spec=None,
     fam = arch_entry.family
     if fam == "lm":
         return T.init_lm(cfg, seed=seed, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = L.make_generator(device, seed)
     if fam == "gnn":
         d_feat = (shape_spec.extra("d_feat", cfg.d_feat_default)
                   if shape_spec is not None else cfg.d_feat_default)
         return G.init_schnet(cfg, gen, d_feat=d_feat, device=device)
-    init, _ = R.FORWARDS[cfg.interaction]
-    return init(cfg, gen)
+    init = R.FORWARDS[cfg.interaction][0]
+    return init(cfg, gen, device)
+
+
+def param_specs_for(arch_entry, cfg, mesh_model_size: int = 16):
+    """Logical specs of :func:`init_params_for`'s tree.  The LM's expert
+    rule never sees ``mesh_model_size`` (the reference's
+    ``lm_param_specs`` does not pass it on)."""
+    fam = arch_entry.family
+    if fam == "lm":
+        return T.lm_param_specs(cfg)
+    if fam == "gnn":
+        return G.schnet_param_specs(cfg)
+    return R.FORWARDS[cfg.interaction][2](cfg)

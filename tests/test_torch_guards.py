@@ -30,6 +30,8 @@ from repro_torch.data import graph_sampler as tGS
 from repro_torch.data import lm_data as tD
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels.segment_intersect import decode_packed
+from repro_torch.launch import dryrun as tdry
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import recsys as tR
@@ -78,7 +80,8 @@ def test_guard_sees_every_port_module():
                  "grok_1_314b.py", "optimizer.py", "checkpoint.py",
                  "compression.py", "elastic.py", "tree.py", "train.py",
                  "schnet.py", "graph_sampler.py", "dcn_v2.py", "dien.py",
-                 "dlrm_mlperf.py", "xdeepfm.py"):
+                 "dlrm_mlperf.py", "xdeepfm.py", "sharding.py",
+                 "mesh.py", "roofline.py", "dryrun.py"):
         assert must in names
 
 
@@ -101,6 +104,9 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert 'add_argument("--device", default="cuda")' in \
         inspect.getsource(tserve.main)
+    for fn in (tmesh.make_mesh, tmesh.make_production_mesh):
+        assert inspect.signature(fn).parameters[
+            "device_type"].default == "cuda"
     for name in ("scored_topk", "scored_topk_batch", "scored_full",
                  "scored_full_batch", "dispatch"):
         assert "device" not in inspect.signature(
@@ -195,6 +201,38 @@ def test_no_entry_point_waits_for_the_gnn_slice():
     src = "\n".join(p.read_text(encoding="utf-8") for p in PORT_FILES)
     for part in ("part 4", "part 7", "12.4", "12.7"):
         assert f"item 12 {part}" not in src and f"item {part}" not in src
+
+
+def test_no_module_waits_for_the_mesh_slice():
+    """The mesh, sharding, dry-run and roofline slice is in: no docstring
+    or comment of the port says anything waits for Queue 1 item 12 part
+    6."""
+    src = "\n".join(p.read_text(encoding="utf-8") for p in PORT_FILES)
+    for s in ("12 part 6", "item 12.6", "12.6)", "for part 6",
+              "wait on part 6"):
+        assert s not in src, s
+
+
+def test_fake_backend_imported_in_one_module():
+    """``torch.testing._internal`` (private: the fake process group) is
+    imported by ``dist/collectives.py`` alone."""
+    users = [p.relative_to(ROOT).as_posix() for p in PORT_FILES
+             if "torch.testing._internal" in p.read_text(encoding="utf-8")]
+    assert users == ["src/repro_torch/dist/collectives.py"]
+
+
+def test_dryrun_card_mesh_raises_without_cuda(monkeypatch):
+    """``--mesh card`` is the card's own one-device mesh: without CUDA
+    the CLI and the mesh factory raise, and no JSON line is printed."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdry.main(["--arch", "xdeepfm", "--shape", "serve_p99", "--mesh",
+                   "card", "--out", ""])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with tdry.mesh_for("card"):
+            pass
+    import torch.distributed as dist
+    assert not dist.is_initialized()
 
 
 def test_lm_entry_points_never_fall_back_to_the_cpu(tmp_path):

@@ -282,18 +282,10 @@ def test_full_config_shapes_match_reference(arch_name, monkeypatch):
                     (j.shape, str(j.dtype)), f
 
 
-class _MetaGen:
-    """Stands in for a ``torch.Generator`` on the ``meta`` device."""
-    device = torch.device("meta")
-
-
 def _meta_init(cfg, monkeypatch):
     """The port's ``init_lm`` tree of ``cfg`` with shapes and dtypes only:
-    every draw an empty ``meta`` tensor."""
-    monkeypatch.setattr(TT.L, "dense_init", lambda gen, shape, dtype,
-                        scale=None: torch.empty(shape, dtype=dtype,
-                                                device="meta"))
-    return TT._init_tree(cfg, _MetaGen())
+    ``init_lm(device="meta")``, every draw an empty ``meta`` tensor."""
+    return TT.init_lm(cfg, device="meta")
 
 
 def test_paged_server_refuses_moe_and_local_global():
