@@ -91,28 +91,47 @@ Phases, in order (any failure raises and exits non-zero):
      with ``device="cuda"``.  Phases 7a and 7c run right after phase 3,
      on its engine and its stream.
 
-  8. the document-sharded index: (a) phase 3's stream through a
-     ``ShardedLifecycleEngine`` over ``make_doc_mesh(4)`` (docid d on
-     shard d % 4, every shard's ``[S, ...]`` state stacked on the card,
-     Earlybird's 2**23-tweet segment as 2**21 local docs a shard, pools
-     sized from each shard's own substream), one rollover, 2**20 more
-     tweets, phase 3's first 16 queries of every kind (two batches)
-     held against phase 3's brute force; ``bulk_append`` launched 4
+  8. the document-sharded index: (a) the first 2**19 + 2**16 tweets of
+     phase 3's stream through a ``ShardedLifecycleEngine`` over
+     ``make_doc_mesh(4)`` (docid d on shard d % 4, every shard's
+     ``[S, ...]`` state stacked on the card, 2**21-tweet segments as
+     2**17 local docs a shard, pools sized from each shard's own
+     substream), one rollover, 2**16 more tweets, 8 queries of every
+     kind (one batch) held against a brute force of its own (a sixteenth
+     of the segment: 8c runs the full width); ``bulk_append`` launched 4
      times a batch, ``intersect_mask`` (the shards' batched
      conjunctions) and the two batched frozen-segment kernels
      launched; the sharded route's own
      ``intersect_mask`` calls replayed bit-equal to the plain version
      and timed beside their bound and ``searchsorted`` + ``gather``;
      ingest docs/s, rollover s, ms per query batch, traced batches,
-     peak memory and each shard's slots against phase 3's; (b) at
+     peak memory and each shard's slots; (b) at
      phase 4's 2**16-tweet segments: >= 3 rollovers with compaction,
      batched == ``batched=False`` == brute force, journal + snapshot,
      recovery on the card with an equal fingerprint, a two-shard mesh
      and a truncated archive refused, every ``FaultPlan`` kind on four
      shards, and the ServeLoop over a sharded engine (emergency
      rollover, a rejection with retry-after, ``check_serve`` and
-     ``check_engine``).  Phase 8 runs last of the index phases, after
-     phase 3's engine is gone.
+     ``check_engine``); (c) the index on ranks, one shard per process
+     (``make_rank_mesh``, ``torch.distributed``): (i) four gloo ranks
+     on card 0 (NCCL refuses two ranks of one communicator on one GPU)
+     take phase 3's stream at full width (Earlybird's 2**23-tweet
+     segment, 2**21 local docs a rank), each indexing its own shard's
+     block of every batch, then phase 3's first 8 queries of each kind;
+     the snapshot taken on the ranks is restored here as the stacked
+     four-shard engine with an equal fingerprint, and every rank's
+     answer must equal phase 3's brute force and that engine's;
+     ``bulk_append`` asserted once a batch on each rank and the three
+     query kernels launched on each, each rank's own ``intersect_mask``
+     calls (at full width) replayed bit-equal to the plain version after
+     the counts are read; per rank docs/s, rollover s, ms per
+     query batch, launches, ``max_memory_allocated`` and the card's used
+     memory; (ii) one NCCL rank at (b)'s depth, beside (i) on the card,
+     with ``validate=True``, every
+     kind batched and ``batched=False`` against the brute force; (iii)
+     four NCCL ranks, one a card, at (i)'s size, only where the machine
+     has four cards (the log says whether it ran).  Phase 8 runs last
+     of the index phases, after phase 3's engine is gone.
 
   9. the LMs at full width, one on the card at a time, random weights
      from seed 0 (no kernel of the repo is on this path: attention and
@@ -194,7 +213,8 @@ Phases, in order (any failure raises and exits non-zero):
 ``--paged-only`` runs phases 1 and 5 alone, ``--recsys-only`` phases 1
 and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
 and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9,
-``--train-only`` phases 1 and 10, ``--gnn-only`` phases 1 and 11 (short
+``--train-only`` phases 1 and 10, ``--gnn-only`` phases 1 and 11,
+``--ranks-only`` phases 1 and 8c (with a brute force of its own; short
 rehearsals);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
@@ -221,6 +241,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -246,9 +267,10 @@ from repro_torch.core.index import ActiveSegment, flatten  # noqa: E402
 from repro_torch.core.lifecycle import (  # noqa: E402
     AdmissionController, LifecycleEngine, ShardedLifecycleEngine)
 from repro_torch.core.sharded_index import (  # noqa: E402
-    engine_max_len, make_doc_mesh)
+    engine_max_len, make_doc_mesh, make_rank_mesh)
 from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
+from repro_torch.dist.collectives import process_world  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
 from repro_torch.kernels import segment_intersect as si  # noqa: E402
@@ -304,8 +326,7 @@ SOURCES = {
     "embedding_bag_backward": "src/repro_torch/csrc/embedding_bag_backward.cu",
 }
 SCORED_K = 10                # the scored top-k route's k
-MAIN_QUERIES = 32            # phase 3's queries of each kind (a depth cut:
-                             # 64 until the training phase came)
+MAIN_QUERIES = 32            # phase 3's queries of each kind (a depth cut)
 INVALID = 0xFFFFFFFF         # the lists' pad and the heap's NULL
 
 
@@ -892,12 +913,13 @@ def top_ops(prof: dict, digits: int = 1) -> str:
 
 def profile_paths(eng, docs, queries, pairs, q_rows: int) -> None:
     """One traced ingest batch and one traced query batch of each kind
-    (:func:`device_profile`).  Runs after the measured main path, whose
-    launch counts it leaves alone.  Returns each one's wall and device
-    ms, idle share and top ops by name."""
+    given (:func:`device_profile`; no queries: the ingest batch alone).
+    Runs after the measured main path, whose launch counts it leaves
+    alone.  Returns each one's wall and device ms, idle share and top
+    ops by name."""
     calls = [("ingest", lambda: eng.ingest(docs))] + [
         (kind, lambda c=call, b=batch: c(b[:q_rows])) for kind, batch, call
-        in query_calls(eng, queries, pairs)]
+        in query_calls(eng, queries, pairs) if len(batch)]
     out = {}
     for name, fn in calls:
         p = device_profile(fn)
@@ -1146,7 +1168,8 @@ FULL_BUCKET = 32              # ServeConfig().max_batch: one full bucket
 # to read one such step.  The full stretches take 4 steps a forced rung
 # and, to keep the script within its time limit, 4 under the gauge; the
 # light forced stretches take 37 batches each, and of them only the
-# exhaustive one is traced; the light gauge stretch takes the rest (88).
+# exhaustive one is traced; the light gauge stretch takes 88; the loop's
+# drain ingests the rest.
 SERVE_STRETCHES = (("exhaustive", 0, 37, (0, 9, 18, 27), 10, True),
                    ("early_exit", 1, 37, (0, 9, 18, 27), 10, False),
                    ("reduced_k", 2, 37, (0, 9, 18, 27), 10, False),
@@ -2135,10 +2158,7 @@ def phase_index(segment_log2: int, serve_only: bool = False):
         k: v for k, v in main_sum.items() if k != "launches"}))
     if serve_only:
         return []
-    sharded = phases_sharded(docs, vocab, seg_docs, extra, q_rows, oracle,
-                             single={k: main_sum[k] for k in (
-                                 "high_water_slots", "live_slots",
-                                 "high_water_slots_at_rollover")})
+    sharded = phases_sharded(docs, vocab, seg_docs, extra, q_rows, oracle)
     del docs
 
     table = []
@@ -2152,6 +2172,8 @@ def phase_index(segment_log2: int, serve_only: bool = False):
                  else {"sequential": seq_counts[name]})
         if name != "segment_intersect_mask":
             paths["sharded"] = sharded["launches"][name]
+            paths["ranks"] = sharded["ranks"]["launches"][name]
+        paths["ranks_nccl"] = sharded["ranks"]["nccl1"]["launches"][name]
         row = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(paths.values()),
@@ -2169,21 +2191,38 @@ def phase_index(segment_log2: int, serve_only: bool = False):
 
 
 def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
-                   q_rows: int, oracle=None, single=None) -> dict:
-    """Phase 8 (a) at full width and (b) at phase 4's depth; logs and
-    returns 8(a)'s summary."""
+                   q_rows: int, oracle=None) -> dict:
+    """Phase 8: (a) four stacked shards at a sixteenth of the segment
+    (the stream's first 2**19 + 2**16 tweets, a brute force of its own),
+    (b)
+    at phase 4's depth, in this process while (c) the index on ranks
+    runs at full width in its own processes (``oracle``:
+    phase 3's queries, pairs and answers, of which the first
+    :data:`RANK_QUERIES` are used; made here when None); logs and returns
+    8(a)'s summary with 8(c)'s under ``ranks``."""
     t0 = time.perf_counter()
-    if oracle is not None:
-        queries, pairs, want = oracle
-        n = SHARDED_QUERIES
-        oracle = (queries[:n], pairs[:n], {k: v[:n] for k, v in want.items()})
-    full = phase_sharded(docs, vocab, seg_docs, extra, q_rows,
-                         SHARDED_QUERIES, oracle=oracle, single=single)
-    log(f"phase 8a (sharded, full width) {time.perf_counter() - t0:.1f} s")
+    seg_a, extra_a = seg_docs >> SHARDED_SHIFT, extra >> SHARDED_SHIFT
+    full = phase_sharded(docs[: seg_a + extra_a + BATCH], vocab, seg_a,
+                         extra_a, q_rows, SHARDED_QUERIES)
+    log(f"phase 8a (sharded, {seg_a}-tweet segments) "
+        f"{time.perf_counter() - t0:.1f} s")
+    small = {}
+
+    def phase_8b():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            small.update(phase_sharded_small(tmp))
+        log(f"phase 8b (sharded, phase 4 depth, beside 8c's ranks) "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        small = phase_sharded_small(tmp)
-    log(f"phase 8b (sharded, phase 4 depth) {time.perf_counter() - t0:.1f} s")
+    if oracle is None:
+        oracle = rank_oracle(docs, vocab, seg_docs + extra)
+    queries, pairs, want = oracle
+    n = RANK_QUERIES
+    full["ranks"] = phase_ranks(docs, vocab, seg_docs, extra, (
+        queries[:n], pairs[:n], {k: v[:n] for k, v in want.items()}),
+        beside=phase_8b)
+    log(f"phases 8b and 8c (ranks) {time.perf_counter() - t0:.1f} s")
     log("sharded: " + json.dumps(dict(
         {k: v for k, v in full.items() if k != "launches"}, small=small,
         launches=full["launches"])))
@@ -2194,8 +2233,11 @@ def phases_sharded(docs, vocab: int, seg_docs: int, extra: int,
 # phase 8: the document-sharded index, four shards stacked on the card
 # ---------------------------------------------------------------------------
 SHARDS = 4                    # S: docid d lives on shard d % S
-SHARDED_QUERIES = 16          # phase 3's first 16 queries of each kind: a
-                              # depth cut that keeps the script in its limit
+SHARDED_QUERIES = 8           # 8a's queries of each kind, one batch
+SHARDED_SHIFT = 4             # 8a's segment: Earlybird's 2**23 tweets >> 4
+                              # (8c runs the full width on ranks): depth
+                              # cuts that keep the script within its time
+                              # limit
 
 
 def shard_layout(docs: np.ndarray, vocab: int, seg_docs: int,
@@ -2241,6 +2283,38 @@ def _unprefix(vals, n, shape):
     return out
 
 
+@contextlib.contextmanager
+def keeping_intersect_calls(calls: list):
+    """Route ``ops.intersect_mask`` through a spy that appends each
+    call's inputs to ``calls`` as valid prefixes (:func:`_prefix_rows`)
+    and launches the kernel as before (its launch count unchanged)."""
+    real = ops.intersect_mask
+
+    def spy(a, b):
+        calls.append((_prefix_rows(a), _prefix_rows(b)))
+        return real(a, b)
+    ops.intersect_mask = spy
+    try:
+        yield calls
+    finally:
+        ops.intersect_mask = real
+
+
+def replay_intersect_calls(calls, what: str) -> float:
+    """Each kept ``intersect_mask`` call rebuilt at its padded shape and
+    launched twice, bit-equal to ``intersect_mask_ref`` (raises if not);
+    returns the max abs error (0)."""
+    err = 0
+    for i, (pa, pb) in enumerate(calls):
+        a, b = _unprefix(*pa), _unprefix(*pb)
+        want = ref.intersect_mask_ref(a, b)
+        for k in range(2):
+            err = max(err, require_equal(
+                f"intersect_mask {what} call {i} (replay {k})",
+                ops.intersect_mask(a, b), want))
+    return err
+
+
 def sharded_intersect_calls(calls, flush) -> dict:
     """The sharded route's own ``intersect_mask`` calls (kept as valid
     prefixes, rebuilt at their padded shapes): each twice on the card,
@@ -2248,19 +2322,13 @@ def sharded_intersect_calls(calls, flush) -> dict:
     profiler beside its summed byte bound; and the call that needs the
     most bytes warm, L2-flushed, by the profiler, beside its plain
     version, ``searchsorted`` + ``gather`` and its bound."""
-    need, top, err = 0, None, 0
+    err = replay_intersect_calls(calls, "sharded")
+    need, top = 0, None
     for i, (pa, pb) in enumerate(calls):
-        a, b = _unprefix(*pa), _unprefix(*pb)
-        want = ref.intersect_mask_ref(a, b)
-        for k in range(2):
-            err = max(err, require_equal(
-                f"intersect_mask sharded call {i} (replay {k})",
-                ops.intersect_mask(a, b), want))
-        nb = tim.bound_bytes(a, b)[0]
+        nb = tim.bound_bytes(_unprefix(*pa), _unprefix(*pb))[0]
         need += nb
         if top is None or nb > top[0]:
             top = (nb, i)
-    del a, b, want
 
     def replay():
         for pa, pb in calls:
@@ -2302,14 +2370,12 @@ def sharded_intersect_calls(calls, flush) -> dict:
 
 
 def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
-                  extra_docs: int, q_rows: int, n_queries: int,
-                  oracle=None, single=None) -> dict:
-    """8(a): phase 3's stream through a four-shard
-    ``ShardedLifecycleEngine`` at Earlybird's 2**23-tweet segment (2**21
-    local docs a shard), one rollover, 2**20 more tweets, then the query
-    batches of every kind held against phase 3's brute force
-    (``oracle``: its queries, pairs and answers; made here when None).
-    ``single``: phase 3's slots, for the cost of partitioning."""
+                  extra_docs: int, q_rows: int, n_queries: int) -> dict:
+    """8(a): a prefix of phase 3's stream through a four-shard
+    ``ShardedLifecycleEngine`` over ``make_doc_mesh(4)`` at ``seg_docs``
+    tweets a segment, one rollover, ``extra_docs`` more tweets, then the
+    query batches of every kind held against a brute force of its
+    own."""
     t0 = time.perf_counter()
     layout, need, fmax = shard_layout(docs, vocab, seg_docs)
     log(f"sharded: {SHARDS} shards of {seg_docs // SHARDS} local docs a "
@@ -2360,30 +2426,13 @@ def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
     log(f"sharded pools: high-water {hw_roll} slots at rollover, "
         f"{eng.memory_high_water_slots()} after; live "
         f"{eng.memory_slots_used()}; per shard live "
-        f"{shard_live.tolist()}, high-water {shard_hw.tolist()}"
-        + ("" if single is None else
-           f"; single device (phase 3, same stream): high-water "
-           f"{single['high_water_slots']}, live {single['live_slots']}"))
-    if oracle is None:
-        t0 = time.perf_counter()
-        queries, pairs = query_batch(docs[:total], vocab, n_queries, seed=1)
-        bf = BruteForce(docs[:total], {t for q in queries for t in q},
-                        vocab)
-        oracle = (queries, pairs, oracle_answers(bf, queries, pairs))
-        del bf
-        log(f"sharded: brute force of its own in "
-            f"{time.perf_counter() - t0:.1f} s")
-    queries, pairs, want = oracle
-    calls, real = [], ops.intersect_mask
-
-    def spy(a, b):              # keeps the call's valid prefixes
-        calls.append((_prefix_rows(a), _prefix_rows(b)))
-        return real(a, b)
-    ops.intersect_mask = spy
-    try:
+        f"{shard_live.tolist()}, high-water {shard_hw.tolist()}")
+    t0 = time.perf_counter()
+    queries, pairs, want = rank_oracle(docs, vocab, total, n_queries)
+    log(f"sharded: brute force of its own in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with keeping_intersect_calls([]) as calls:
         res = run_queries(eng, queries, pairs, q_rows)
-    finally:
-        ops.intersect_mask = real
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = max([torch.cuda.max_memory_allocated()]
@@ -2406,8 +2455,9 @@ def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
         check_answers(f"sharded {kind}", got, want[kind])
     log(f"sharded brute force: {len(queries)} queries of each kind agree "
         f"with the brute force")
-    prof = profile_paths(eng, docs[total: total + BATCH], queries, pairs,
-                         q_rows)
+    # the ingest batch alone: a traced query batch costs the profiler
+    # seconds to read, and 8c runs the queries at full width
+    prof = profile_paths(eng, docs[total: total + BATCH], [], [], q_rows)
     del eng, st
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -2425,7 +2475,7 @@ def phase_sharded(docs: np.ndarray, vocab: int, seg_docs: int,
         peak_bytes=peak, high_water_slots_at_rollover=hw_roll,
         shard_live_slots=shard_live.tolist(),
         shard_high_water_slots=shard_hw.tolist(),
-        single_device_slots=single, profile=prof,
+        profile=prof,
         launches=dict(counts, bulk_append=ingest_counts["bulk_append"]),
         intersect_mask=im)
 
@@ -2617,6 +2667,477 @@ def phase_sharded_small(tmp: str) -> dict:
     return dict(recover_s=t_rec, archive_bytes=len(blob), tiers=tiers,
                 rollovers=rolls[0], compactions=rolls[1],
                 fault_plans=kinds, serving=sharded_serving())
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the index on ranks, one shard per process (torch.distributed)
+# ---------------------------------------------------------------------------
+RANK_SHARDS = 4               # rank processes of (i) and (iii)
+RANK_QUERIES = 8              # phase 3's first 8 queries of each kind
+RANK_TIMEOUT = 600            # s: each rank world, and each collective
+
+
+def answer_digests(answers: dict) -> dict:
+    """``{kind: [sha256 of each answer]}`` over int64 bytes (a scored
+    answer's docids then scores): what the ranks send back to be held
+    against the brute force and phase 8a."""
+    def one(a):
+        h = hashlib.sha256()
+        for part in (a if isinstance(a, tuple) else (a,)):
+            h.update(np.ascontiguousarray(part, np.int64).tobytes())
+            h.update(b"|")
+        return h.hexdigest()
+    return {kind: [one(a) for a in got] for kind, got in answers.items()}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_world(cfg: dict, n: int, tmp: str) -> dict:
+    """Start ``n`` processes of this script (``--rank-child``) in one
+    world on ``cfg['backend']``, writing into ``tmp``; :func:`end_world`
+    waits for them."""
+    port = _free_port()
+    procs, logs = [], []
+    # the host's cores split between the ranks
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(
+        1, (os.cpu_count() or n) // n)))
+    for r in range(n):
+        c = dict(cfg, rank=r, world=n, port=port, out=tmp,
+                 timeout=RANK_TIMEOUT)
+        logs.append((open(os.path.join(tmp, f"rank{r}.out"), "w+"),
+                     open(os.path.join(tmp, f"rank{r}.err"), "w+")))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-child",
+             json.dumps(c)], stdout=logs[-1][0], stderr=logs[-1][1],
+            text=True, env=env))
+    return dict(procs=procs, logs=logs, tmp=tmp, n=n,
+                backend=cfg["backend"], t0=time.perf_counter())
+
+
+def kill_world(w: dict) -> None:
+    """Kill whatever is left of a :func:`start_world` world."""
+    for p in w["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def end_world(w: dict) -> list:
+    """Each rank's result dict of a :func:`start_world` world, in rank
+    order; its wall time in ``w['wall_s']``.  A rank that fails, or a
+    world that outlives :data:`RANK_TIMEOUT`, raises here (every process
+    is killed first)."""
+    procs, n = w["procs"], w["n"]
+    deadline = w["t0"] + RANK_TIMEOUT
+    try:
+        # a rank that fails ends the world at once: its peers would wait
+        # in their next collective until the timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs) or \
+                    time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        # still running, none failed: late (a world that ended long
+        # before this call is not)
+        late = (any(p.poll() is None for p in procs)
+                and not any(p.returncode for p in procs))
+    finally:
+        kill_world(w)
+    w["wall_s"] = time.perf_counter() - w["t0"]
+    if late:
+        raise AssertionError(f"the world of {n} ranks outlived "
+                             f"{RANK_TIMEOUT} s")
+    failed = []
+    for r, (p, (out, err)) in enumerate(zip(procs, w["logs"])):
+        out.seek(0)
+        err.seek(0)
+        for line in out.read().splitlines():
+            log(f"  rank {r} ({w['backend']}): {line}")
+        tail = err.read()[-4000:]
+        out.close()
+        err.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}:\n{tail}")
+    if failed:
+        raise AssertionError(f"a world of {n} ranks over {w['backend']} "
+                             f"failed:\n" + "\n".join(failed))
+    res = []
+    for r in range(n):
+        with open(os.path.join(w["tmp"], f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def rank_child(cfg: dict) -> int:
+    """One rank of phase 8c: joins the world, builds its
+    :func:`make_rank_mesh` shard on its card and runs ``cfg['run']``;
+    writes its result as JSON."""
+    import faulthandler
+    faulthandler.enable()
+    t0 = time.perf_counter()
+    rank, n = cfg["rank"], cfg["world"]
+    dev = torch.device(cfg["device"].format(rank=rank))
+    torch.cuda.set_device(dev)
+    _cuda.lib()                       # the parent's build, loaded
+    with process_world(cfg["backend"], rank=rank, world_size=n,
+                       port=cfg["port"], timeout_s=cfg["timeout"]):
+        mesh = make_rank_mesh(n, device=dev)
+        fn = rank_full if cfg["run"] == "full" else rank_small
+        res = fn(cfg, mesh)
+    res.update(rank=rank, shard=mesh.shard, device=str(dev),
+               seconds=time.perf_counter() - t0)
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def rank_full(cfg: dict, mesh) -> dict:
+    """(i)/(iii) on one rank: phase 3's stream (the parent's file)
+    through ``ShardedLifecycleEngine`` on the rank mesh with the shard
+    pools ``cfg`` gives, one rollover, 2**20 more tweets, then the
+    first 8 queries of each kind in one batch each; the snapshot and the
+    fingerprint taken on the ranks.  ``bulk_append`` must launch once a
+    batch on this rank, the three query kernels at least once; the
+    rank's own ``intersect_mask`` calls (its shard's conjunctions at
+    full width) are kept and, after the counts are read, replayed
+    bit-equal to the plain version."""
+    dev = mesh.device
+    vocab, seg_docs, extra = cfg["vocab"], cfg["seg_docs"], cfg["extra"]
+    docs = np.load(cfg["docs"], mmap_mode="r")
+    fmax = cfg["fmax"]
+    eng = ShardedLifecycleEngine(
+        pointers.production_layout(tuple(cfg["spp"])), vocab, seg_docs,
+        mesh, max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+        max_len=engine_max_len(fmax), device=dev)
+    total = seg_docs + extra
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for s in range(0, total, BATCH):
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize(dev)
+            t_first = time.perf_counter() - t0
+        eng.ingest(docs[s: s + BATCH])
+        if s == seg_docs - BATCH:
+            torch.cuda.synchronize(dev)
+            t_roll = time.perf_counter() - t0 - t_first
+    torch.cuda.synchronize(dev)
+    t_after = time.perf_counter() - t0 - t_first - t_roll
+    eng.check_health()
+    if eng.stats.rollovers != 1:
+        raise AssertionError(f"expected one rollover, saw "
+                             f"{eng.stats.rollovers}")
+    n_batches = total // BATCH
+    ingest = ops.launch_counts()
+    if ingest["bulk_append"] != n_batches:
+        raise AssertionError(f"bulk_append launched "
+                             f"{ingest['bulk_append']} times on this rank "
+                             f"for {n_batches} batches")
+    ingest_peak = torch.cuda.max_memory_allocated(dev)
+    queries = [tuple(q) for q in cfg["queries"]]
+    pairs = [tuple(p) for p in cfg["pairs"]]
+    free, total_mem = torch.cuda.mem_get_info(dev)
+    with keeping_intersect_calls([]) as calls:
+        res, used = rank_queries(eng, queries, pairs, cfg.get("turns"))
+    used = max(used, total_mem - free)
+    counts = ops.launch_counts()
+    for k in ("intersect_mask", "segment_intersect_mask_batched",
+              "scored_intersect_batched"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the rank never launched {k}")
+    if len(calls) != counts["intersect_mask"]:
+        raise AssertionError(f"{len(calls)} intersect_mask calls kept, "
+                             f"{counts['intersect_mask']} launches counted")
+    peak = max([ingest_peak] + [r[2] for r in res.values()])
+    log(f"shard {mesh.shard}: {n_batches} batches, {t_first:.3f} s to the "
+        f"rollover batch, launches {json.dumps(counts)}, peak "
+        f"{peak / 2**30:.2f} GiB, card used up to {used / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    recovery.snapshot(eng, cfg["snap"], seq=n_batches)
+    t_snap = time.perf_counter() - t0
+    fp = recovery.engine_fingerprint(eng)
+    slots = (eng.memory_slots_used(),
+             eng.segments.active.shard_slots_used().tolist())
+    shapes = sorted({(c[0][2], c[1][2]) for c in calls})
+    t0 = time.perf_counter()
+    err = replay_intersect_calls(calls, f"shard {mesh.shard}")
+    return dict(
+        intersect_calls=len(calls), intersect_shapes=shapes,
+        intersect_max_abs_err=err, replay_s=time.perf_counter() - t0,
+        ingest_docs_per_s=(seg_docs - BATCH) / t_first,
+        recycled_docs_per_s=extra / t_after, rollover_s=t_roll,
+        query_ms={k: v[1] for k, v in res.items()},
+        query_wait_ms={k: v[3] for k, v in res.items()},
+        peak_bytes=peak, card_used_bytes=used,
+        snapshot_s=t_snap, launches=counts, batches=n_batches,
+        digests=answer_digests({k: v[0] for k, v in res.items()}),
+        fingerprint=fp if mesh.shard == 0 else None,
+        memory_slots_used=slots[0], shard_slots=slots[1])
+
+
+def rank_queries(eng, queries, pairs, turns) -> dict:
+    """Each kind's batch of :data:`RANK_QUERIES` on this rank: ``({kind:
+    (answers, [ms], peak bytes, ms waiting for the card)}, the card's
+    most used bytes seen at the end of a batch)``.
+
+    With ``turns`` (a lock file: ranks sharing one card) the ranks take
+    turns on the card's memory for the replicated frozen side: once the
+    active fan-out (its collectives) has returned, a rank frees its
+    cached blocks and waits for the lock, evaluates the frozen side and
+    copies the answers out, then unlocks.  No collective runs while the
+    lock is held, so no rank waits in one for a rank that waits for the
+    lock.  At full width four frozen evaluations at once do not fit the
+    card (8a's disjunctive batch peaks at 35.77 GiB)."""
+    import fcntl
+    dev = eng.device
+    lock = None if not turns else open(turns, "a")
+    held = {"wait": 0.0, "on": False}
+    if lock is not None:
+        def take(fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                held["wait"] += time.perf_counter() - t0
+                held["on"] = True
+                return out
+            return wrapped
+        for name in ("_active_batch", "_active_topk_batch",
+                     "_active_scored_batch"):
+            setattr(eng, name, take(getattr(eng, name)))
+    out, used = {}, 0
+    try:
+        for kind, batch, call in query_calls(eng, queries, pairs):
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+            held["wait"] = 0.0
+            t0 = time.perf_counter()
+            got = call(batch[:RANK_QUERIES])
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+            free, total = torch.cuda.mem_get_info(dev)
+            used = max(used, total - free)
+            if held["on"]:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+                held["on"] = False
+                torch.cuda.empty_cache()
+            out[kind] = (got, [ms], peak, held["wait"] * 1e3)
+    finally:
+        if lock is not None:
+            if held["on"]:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+            lock.close()
+            for name in ("_active_batch", "_active_topk_batch",
+                         "_active_scored_batch"):
+                del eng.__dict__[name]
+    return out, used
+
+
+def rank_small(cfg: dict, mesh) -> dict:
+    """(ii): phase 8b's stream at 2**16-tweet segments on this rank mesh
+    (one NCCL rank on the card), ``validate=True`` and
+    ``CompactionPolicy(fanout=2)``: >= 3 rollovers, 16 queries of each
+    kind batched and ``batched=False``, each equal to the brute force."""
+    small = vocab = 1 << 16
+    sdocs = make_stream(vocab, 4 * small + small // 2, seed=7)
+    layout, _, fmax = shard_layout(sdocs, vocab, small, mesh.num_shards)
+    eng = ShardedLifecycleEngine(
+        layout, vocab, small, mesh,
+        max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+        max_len=engine_max_len(fmax), compaction=CompactionPolicy(fanout=2),
+        validate=True, device=mesh.device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for s in range(0, sdocs.shape[0], BATCH):
+        eng.ingest(sdocs[s: s + BATCH])
+    torch.cuda.synchronize(mesh.device)
+    t_ingest = time.perf_counter() - t0
+    eng.check_health()
+    rolls = (eng.stats.rollovers, eng.stats.compactions)
+    if rolls[0] < 3 or rolls[1] < 1:
+        raise AssertionError(f"rollovers {rolls[0]}, compactions "
+                             f"{rolls[1]}")
+    queries, pairs = query_batch(sdocs, vocab, 16, seed=2)
+    batched = run_queries(eng, queries, pairs, 16)
+    eng.batched = False
+    seq = run_queries(eng, queries, pairs, 16)
+    bf = BruteForce(sdocs, {t for q in queries for t in q}, vocab)
+    want = oracle_answers(bf, queries, pairs)
+    for kind in batched:
+        check_answers(f"rank {kind} batched", batched[kind][0], want[kind])
+        check_answers(f"rank {kind} sequential", seq[kind][0], want[kind])
+    invariants.check_engine(eng).raise_if_failed()
+    counts = ops.launch_counts()
+    n_batches = -(-sdocs.shape[0] // BATCH)
+    if counts["bulk_append"] != n_batches * len(mesh.local_shards):
+        raise AssertionError(f"bulk_append launched "
+                             f"{counts['bulk_append']} times for "
+                             f"{n_batches} batches")
+    for k in ("intersect_mask", "segment_intersect_mask_batched",
+              "segment_intersect_mask", "scored_intersect_batched"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the rank never launched {k}")
+    return dict(rollovers=rolls[0], compactions=rolls[1],
+                ingest_s=t_ingest, launches=counts,
+                query_ms={k: v[1] for k, v in batched.items()})
+
+
+def ranks_full(base: dict, name: str, backend: str, device: str,
+               want_d, beside=None) -> dict:
+    """(i) or (iii): one world of :data:`RANK_SHARDS` ranks at full width
+    (``beside()``, if given, runs here meanwhile); the ranks' snapshot
+    restored here as the stacked engine with the ranks' fingerprint,
+    then every rank's answer digests held against the brute force's
+    (``want_d``) and that engine's on the same queries.  Returns the
+    world's summary."""
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "ranks.snap")
+        shared = "{rank}" not in device
+        w = start_world(dict(
+            base, backend=backend, device=device, snap=snap,
+            turns=os.path.join(tmp, "card.lock") if shared else None),
+            RANK_SHARDS, tmp)
+        try:
+            if beside is not None:
+                beside()
+        finally:
+            ranks = end_world(w)
+        t0 = time.perf_counter()
+        back = recovery.restore(snap, device="cuda")
+        fp = json.loads(json.dumps(recovery.engine_fingerprint(back)))
+        t_restore = time.perf_counter() - t0
+        archive = os.path.getsize(snap)
+        res = run_queries(back, [tuple(q) for q in base["queries"]],
+                          [tuple(p) for p in base["pairs"]], RANK_QUERIES)
+        stacked_d = answer_digests({k: v[0] for k, v in res.items()})
+        for r in ranks:
+            for kind, got in r["digests"].items():
+                for what, want in (("the brute force", want_d[kind]),
+                                   ("the stacked engine", stacked_d[kind])):
+                    bad = [i for i, (g, x) in enumerate(zip(got, want))
+                           if g != x]
+                    if bad or len(got) != len(want):
+                        raise AssertionError(
+                            f"rank {r['rank']} {kind}: queries {bad} "
+                            f"differ from {what}")
+        del back, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    if fp != ranks[0]["fingerprint"]:
+        raise AssertionError("the ranks' snapshot restored as the stacked "
+                             "engine has another fingerprint")
+    for r in ranks:
+        log(f"phase 8c ({name}) shard {r['shard']} on {r['device']}: "
+            f"ingest {r['ingest_docs_per_s']:.0f} docs/s (the world's "
+            f"docs over this rank's time), rollover {r['rollover_s']:.3f} "
+            f"s, recycled {r['recycled_docs_per_s']:.0f} docs/s; query "
+            f"batches of {RANK_QUERIES} (ms, of it waiting for the card's "
+            f"turn): " + ", ".join(
+                f"{k} {v[0]:.1f} ({r['query_wait_ms'][k]:.1f})"
+                for k, v in r["query_ms"].items())
+            + f"; launches {json.dumps(r['launches'])}; "
+            f"max_memory_allocated {r['peak_bytes'] / 2**30:.2f} GiB; "
+            f"card used up to {r['card_used_bytes'] / 2**30:.2f} GiB; "
+            f"snapshot {r['snapshot_s']:.2f} s; its {r['intersect_calls']} "
+            f"intersect_mask calls (a, b shapes "
+            f"{sorted({tuple(map(tuple, x)) for x in r['intersect_shapes']})}"
+            f") replayed twice, bit-equal to the plain version, in "
+            f"{r['replay_s']:.2f} s")
+    log(f"phase 8c ({name}): {RANK_SHARDS} ranks over {backend}, "
+        f"{RANK_QUERIES} queries of each kind: the ranks' archive "
+        f"({archive} bytes) restored as the stacked engine in "
+        f"{t_restore:.1f} s with an equal fingerprint; every rank's answer "
+        f"equal to the brute force and to that stacked engine's; world "
+        f"{w['wall_s']:.1f} s")
+    return dict(
+        wall_s=w["wall_s"], restore_s=t_restore, archive_bytes=archive,
+        ranks=[{k: r[k] for k in (
+            "shard", "device", "ingest_docs_per_s", "rollover_s",
+            "recycled_docs_per_s", "query_ms", "query_wait_ms", "launches",
+            "peak_bytes", "card_used_bytes", "snapshot_s", "intersect_calls",
+            "intersect_max_abs_err", "replay_s")}
+            for r in ranks])
+
+
+def rank_oracle(docs, vocab: int, total: int, n: int = RANK_QUERIES):
+    """The first ``n`` AOL-like queries (and their pairs) over the
+    stream's first ``total`` docs, drawn as phase 3 draws its
+    :data:`MAIN_QUERIES` (the log's query lengths depend on how many are
+    drawn, so ``--ranks-only`` runs the full run's queries), with a
+    brute force's answers: ``(queries, pairs, answers)``."""
+    queries, pairs = query_batch(docs[:total], vocab, MAIN_QUERIES, seed=1)
+    queries, pairs = queries[:n], pairs[:n]
+    bf = BruteForce(docs[:total], {t for q in queries for t in q}, vocab)
+    return queries, pairs, oracle_answers(bf, queries, pairs)
+
+
+def phase_ranks(docs, vocab: int, seg_docs: int, extra: int,
+                oracle, beside=None) -> dict:
+    """8(c): (i) four gloo ranks on card 0, one shard each, at full width
+    (phase 3's stream, pools sized from each shard's substream as 8a's):
+    every answer's digest equal to the brute force's (``oracle``) and to
+    the stacked four-shard engine's, that engine restored here from the
+    ranks' snapshot with an equal fingerprint; per-rank launches
+    asserted; (ii) one NCCL rank at phase 8b's depth, beside (i); (iii)
+    four NCCL ranks, one a card, at (i)'s size where the machine has
+    four cards.  The ranks read the stream from a file the parent
+    writes; ``beside()``, if given, runs in the parent while (i) runs.
+    Four processes time-slicing one card is a correctness run, not a
+    deployment's throughput."""
+    queries, pairs, want = oracle
+    t0 = time.perf_counter()
+    layout, _, fmax = shard_layout(docs, vocab, seg_docs)
+    log(f"phase 8c: pools {layout.slices_per_pool} slices a shard "
+        f"({layout.total_slots} slots), shard head-term freq {fmax}; sized "
+        f"in {time.perf_counter() - t0:.1f} s")
+    base = dict(run="full", vocab=vocab, seg_docs=seg_docs, extra=extra,
+                spp=list(layout.slices_per_pool), fmax=fmax,
+                queries=[list(q) for q in queries],
+                pairs=[list(p) for p in pairs])
+    want_d = answer_digests(want)
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    worlds = [("gloo", "gloo", "cuda:0")]
+    if torch.cuda.device_count() >= RANK_SHARDS:
+        worlds.append(("nccl4", "nccl", "cuda:{rank}"))
+    with contextlib.ExitStack() as stack:
+        # (ii) is small: it runs beside (i) on the same card
+        small_w = start_world(dict(run="small", backend="nccl",
+                                   device="cuda:0"), 1,
+                              stack.enter_context(
+                                  tempfile.TemporaryDirectory()))
+        stack.callback(kill_world, small_w)
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        base["docs"] = os.path.join(tmp, "docs.npy")
+        np.save(base["docs"], docs[: seg_docs + extra])
+        for name, backend, device in worlds:
+            out[name] = ranks_full(base, name, backend, device, want_d,
+                                   beside if name == "gloo" else None)
+        (small,) = end_world(small_w)
+    out["nccl4_ran"] = "nccl4" in out
+    if not out["nccl4_ran"]:
+        log(f"phase 8c (iii): not run, {torch.cuda.device_count()} card(s) "
+            f"(four NCCL ranks need one card each)")
+    log(f"phase 8c (ii): one NCCL rank at phase 8b's depth, beside (i) on "
+        f"the card: {small['rollovers']} rollovers, {small['compactions']} "
+        f"compactions, validate=True; 16 queries of each kind batched and "
+        f"batched=False equal to the brute force; launches "
+        f"{json.dumps(small['launches'])}; {small['seconds']:.1f} s on the "
+        f"rank's clock")
+    out["nccl1"] = small
+    out["launches"] = {k: sum(r["launches"][k] for r in out["gloo"]["ranks"])
+                       for k in out["gloo"]["ranks"][0]["launches"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4507,6 +5028,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the build and the sharded index (phase "
                          "8, with its own brute force)")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="run only the build and the index on ranks "
+                         "(phase 8c, with its own brute force)")
+    ap.add_argument("--rank-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--intersect-calls", default="", metavar="PATH",
                     help="run only the build and phase 4, and save the "
                          "sequential route's intersect_mask inputs to PATH "
@@ -4530,6 +5055,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.rank_child:
+        return rank_child(json.loads(args.rank_child))
     t_start = time.perf_counter()
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -4541,7 +5068,7 @@ def main(argv=None) -> int:
     saving = args.intersect_calls or args.bag_calls or args.segment_calls
     launch = not (saving or args.paged_only or args.recsys_only or
                   args.serve_only or args.sharded_only or args.lm_only or
-                  args.train_only or args.gnn_only)
+                  args.train_only or args.gnn_only or args.ranks_only)
     traces = LaunchTraces() if launch else None
     try:
         table = run_phases(args, saving, table)
@@ -4579,11 +5106,21 @@ def run_phases(args, saving, table) -> list:
         docs, _, vocab, seg_docs, extra, _ = index_stream(args.segment_log2)
         phases_sharded(docs, vocab, seg_docs, extra, q_rows=8)
         del docs
+    elif args.ranks_only:
+        docs, _, vocab, seg_docs, extra, _ = index_stream(args.segment_log2)
+        oracle = rank_oracle(docs, vocab, seg_docs + extra)
+        t0 = time.perf_counter()
+        res = phase_ranks(docs, vocab, seg_docs, extra, oracle)
+        log(f"phase 8c (ranks) {time.perf_counter() - t0:.1f} s")
+        log("ranks: " + json.dumps(res))
+        del docs
     elif not (args.paged_only or args.recsys_only or args.lm_only or
-              args.train_only or args.gnn_only or args.launch_only):
+              args.train_only or args.gnn_only or args.launch_only or
+              args.ranks_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
     only = (args.serve_only or args.sharded_only or args.lm_only or
-            args.train_only or args.gnn_only or args.launch_only)
+            args.train_only or args.gnn_only or args.launch_only or
+            args.ranks_only)
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -4603,14 +5140,14 @@ def run_phases(args, saving, table) -> list:
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.train_only or args.gnn_only or saving
-            or args.launch_only):
+            or args.launch_only or args.ranks_only):
         t0 = time.perf_counter()
         lms = phase_lm(seed=0)
         log("lm phase: " + json.dumps(lms))
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.lm_only or args.gnn_only or saving
-            or args.launch_only):
+            or args.launch_only or args.ranks_only):
         t0 = time.perf_counter()
         row, trained = phase_train(seed=0)
         table.append(row)
@@ -4618,7 +5155,7 @@ def run_phases(args, saving, table) -> list:
         log(f"train phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.lm_only or args.train_only or saving
-            or args.launch_only):
+            or args.launch_only or args.ranks_only):
         t0 = time.perf_counter()
         log("gnn phase: " + json.dumps(phase_gnn(seed=0)))
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")

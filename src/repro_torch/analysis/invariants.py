@@ -63,7 +63,7 @@ run in numpy, on the host where the port keeps frozen CSRs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -289,10 +289,12 @@ def _check_pool_state_one(layout: PoolLayout, heap, watermark, tail, freq,
     rep.stats["vocab"] = int(V)
 
 
-def check_pool_state(layout: PoolLayout, state) -> Report:
+def check_pool_state(layout: PoolLayout, state,
+                     shards: Optional[Sequence[int]] = None) -> Report:
     """Validate a :class:`~repro_torch.core.slicepool.PoolState` (single
-    ``watermark[P]`` or stacked ``watermark[S, P]``); the chain walk runs
-    on the state's device."""
+    ``watermark[P]`` or stacked ``watermark[S, P]``, whose rows are the
+    shards ``shards``, by default ``0 .. S-1``); the chain walk runs on
+    the state's device."""
     rep = Report(check="pool-state")
     wm = _np(state.watermark)
     ov = _np(state.overflow)
@@ -302,13 +304,13 @@ def check_pool_state(layout: PoolLayout, state) -> Report:
             rep.add("overflow", f"sharded state wants bool[{S}], got "
                     f"shape {ov.shape}")
         rep.stats["shards"] = S
-        for s in range(S):
+        for s, name in enumerate(range(S) if shards is None else shards):
             sub = Report(check=rep.check)
             _check_pool_state_one(layout, state.heap[s], state.watermark[s],
                                   state.tail[s], state.freq[s],
                                   state.free_list[s], state.free_count[s],
                                   sub)
-            _merge(rep, sub, f"shard {s}: ")
+            _merge(rep, sub, f"shard {name}: ")
     else:
         if ov.shape != ():
             rep.add("overflow", f"single state wants a bool scalar, got "
@@ -631,15 +633,27 @@ def check_engine(engine) -> Report:
     emergency — after engine-driven compaction, and right after
     ``recovery.restore``: a snapshot that passes its CRCs but encodes a
     structurally broken state must fail here, not at the first wrong
-    query result."""
+    query result.
+
+    On a rank mesh (:func:`~repro_torch.core.sharded_index.
+    make_rank_mesh`) each rank checks its own shard and the replicated
+    frozen side, then the failure flag is maxed over the ranks: a
+    collective every rank calls, and a failure on one rank fails the
+    report on every rank."""
     rep = Report("check_engine")
-    _merge(rep, check_pool_state(engine.layout,
-                                 engine.segments.active.state), "active/")
+    mesh = getattr(engine.segments, "mesh", None)
+    _merge(rep, check_pool_state(
+        engine.layout, engine.segments.active.state,
+        None if mesh is None else mesh.local_shards), "active/")
     policy = getattr(engine.segments, "compaction", None)
     _merge(rep, check_segment_set(
         engine.segments, layout=engine.layout,
         fanout=policy.fanout if policy is not None else None),
         "segments/")
+    if mesh is not None and mesh.combine(not rep.ok, "max") and rep.ok:
+        # one rank's failure fails them all, so none is left waiting in
+        # the next collective
+        rep.add("ranks", "another rank's shard failed its checks")
     return rep
 
 

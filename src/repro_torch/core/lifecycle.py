@@ -316,10 +316,13 @@ class _LifecycleBase:
                 self.validate_invariants()
         return True
 
+    def _utilization(self) -> float:
+        return slicepool.pool_utilization(self.layout,
+                                          self.segments.active.state)
+
     def _admit(self) -> bool:
         adm = self.admission
-        util = slicepool.pool_utilization(self.layout,
-                                          self.segments.active.state)
+        util = self._utilization()
         if (util >= adm.rollover_at
                 and self.segments.active.next_docid
                 >= max(1, adm.min_segment_docs)):
@@ -332,15 +335,12 @@ class _LifecycleBase:
             self._refresh_memory_stats()
             if self.validate:
                 self.validate_invariants()
-            util = slicepool.pool_utilization(self.layout,
-                                              self.segments.active.state)
+            util = self._utilization()
         return util < adm.shed_at
 
     def _refresh_memory_stats(self) -> None:
-        st = self.segments.active.state
-        self.stats.high_water_slots = slicepool.memory_high_water_slots(
-            self.layout, st)
-        self.stats.live_slots = slicepool.memory_slots_used(self.layout, st)
+        self.stats.high_water_slots = self.memory_high_water_slots()
+        self.stats.live_slots = self.memory_slots_used()
 
     def validate_invariants(self) -> None:
         """Run the structural validators over the allocator state and
@@ -857,10 +857,20 @@ class ShardedLifecycleEngine(_LifecycleBase):
     """Document-sharded streaming engine: the same unified query path
     over :class:`~repro_torch.core.sharded_index.ShardedSegmentSet`
     (per-shard ingest and reclamation, fan-out active queries,
-    global-docid frozen segments).  ``mesh``
-    (:func:`~repro_torch.core.sharded_index.make_doc_mesh`) fixes the
-    shard count and must lie on ``device``.  Its answers are the
-    single-device engine's, bit for bit."""
+    global-docid frozen segments).  ``mesh`` fixes the shard count and
+    must lie on ``device``: :func:`~repro_torch.core.sharded_index.
+    make_doc_mesh` stacks every shard in this process,
+    :func:`~repro_torch.core.sharded_index.make_rank_mesh` gives this
+    process one shard of a ``torch.distributed`` world.  Its answers are
+    the single-device engine's, bit for bit.
+
+    On a rank mesh every rank is called with the same arguments in the
+    same order (each ingest batch, each query batch, each snapshot) and
+    returns the same answers.  Every decision that reads shard state
+    comes from a value reduced over the ranks -- admission's pool
+    utilization is a max over ``docs``, the slot counts are sums, health
+    and validation failures are maxed -- so all ranks make the same
+    collective calls; the frozen side is replicated on every rank."""
 
     def __init__(self, layout: PoolLayout, vocab_size: int,
                  docs_per_segment: int, mesh, *, max_slices: int,
@@ -886,6 +896,15 @@ class ShardedLifecycleEngine(_LifecycleBase):
         self.engine = shx.make_sharded_engine(
             layout, mesh, max_slices, max_len, max_query_len,
             use_kernel=use_kernel)
+
+    def _utilization(self) -> float:
+        return self.segments.active.pool_utilization()
+
+    def memory_slots_used(self) -> int:
+        return self.segments.active.memory_slots_used()
+
+    def memory_high_water_slots(self) -> int:
+        return self.segments.active.memory_high_water_slots()
 
     def _active_batch(self, kind: str, *args):
         """One fan-out over the shards covers the whole query batch; the

@@ -40,6 +40,16 @@ override) runs the structural validators on the restored state before
 it is returned.  A sharded archive restores only onto a mesh of its own
 shard count: docid residue classes ``d % S`` match for that count
 alone.
+
+On a rank mesh (one shard per process,
+:func:`~repro_torch.core.sharded_index.make_rank_mesh`) every rank
+calls each function with the same arguments: :func:`snapshot` gathers
+every active leaf's shards in shard order and shard 0's rank writes the
+archive (the bytes of the stacked engine's archive of the same stream),
+:func:`restore` reads the archive on every rank and keeps the rank's
+own shard's rows, :func:`recover` replays the same journal on every
+rank, and :func:`engine_fingerprint` digests the gathered state, equal
+to the stacked engine's.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import convert
 from repro_torch.core import segments as seg_mod
@@ -176,11 +187,31 @@ def _engine_kind(engine) -> str:
                     f"LifecycleEngine or ShardedLifecycleEngine")
 
 
+def _collected_leaves(segs) -> Optional[Dict[str, np.ndarray]]:
+    """The active state's leaves in the reference's dtypes, every shard,
+    where the archive is written: on a rank mesh each rank sends its
+    rows to shard 0's rank (:meth:`RankMesh.collect`, from host memory,
+    as the bits of those dtypes: uint32 as int32, bool as uint8), which
+    gets them in shard order, and the other ranks get ``None``."""
+    leaves = convert.pool_state_to_numpy(segs.active.state)
+    mesh = getattr(segs, "mesh", None)
+    if mesh is None:
+        return leaves
+    out = {}
+    for name, a in leaves.items():
+        bits = np.ascontiguousarray(a).view(
+            {1: np.uint8, 4: np.int32, 8: np.int64}[a.itemsize])
+        got = mesh.collect(torch.from_numpy(bits))
+        out[name] = None if got is None else got.numpy().view(a.dtype)
+    return None if any(v is None for v in out.values()) else out
+
+
 def snapshot(engine, path: str, *, seq: int = 0) -> Dict[str, Any]:
     """Serialize the engine's full state to ``path``; returns the meta
     dict written into the manifest.  ``seq`` is the journal watermark:
     the number of ingest batches applied so far (:func:`recover`
-    replays records with ``seq >=`` it)."""
+    replays records with ``seq >=`` it).  On a rank mesh shard 0's rank
+    writes, and every rank returns once the file is in place."""
     kind = _engine_kind(engine)
     segs = engine.segments
     policy = segs.compaction
@@ -204,24 +235,6 @@ def snapshot(engine, path: str, *, seq: int = 0) -> Dict[str, Any]:
                       if admission is not None else None),
         **_REFERENCE_ONLY,
     }
-    leaves = convert.pool_state_to_numpy(segs.active.state)
-    arrays: List[Tuple[str, np.ndarray]] = [
-        (f"active/{name}", leaf) for name, leaf in leaves.items()]
-    if segs._hist_freqs is not None:
-        arrays.append(("hist_freqs",
-                       np.asarray(segs._hist_freqs, np.int64)))
-    frozen_meta = []
-    for i, fz in enumerate(segs.frozen):
-        frozen_meta.append({"n_docs": int(fz.n_docs),
-                            "doc_base": int(fz.doc_base),
-                            "tier": int(fz.tier)})
-        for s, member in enumerate(fz.members):
-            prefix = (f"frozen/{i}/shard{s}" if kind == "sharded"
-                      else f"frozen/{i}")
-            arrays.append((f"{prefix}/offsets",
-                           np.asarray(member.offsets, np.int64)))
-            arrays.append((f"{prefix}/data",
-                           np.asarray(member.data, np.uint32)))
     meta = {
         "format": FORMAT_VERSION,
         "kind": kind,
@@ -231,12 +244,39 @@ def snapshot(engine, path: str, *, seq: int = 0) -> Dict[str, Any]:
         "segments": {"doc_base": int(segs._doc_base),
                      "n_rollovers": int(segs.n_rollovers),
                      "n_compactions": int(segs.n_compactions)},
-        "frozen": frozen_meta,
+        "frozen": [{"n_docs": int(fz.n_docs), "doc_base": int(fz.doc_base),
+                    "tier": int(fz.tier)} for fz in segs.frozen],
         "has_hist_freqs": segs._hist_freqs is not None,
         "stats": dataclasses.asdict(engine.stats),
         "seq": int(seq),
     }
-    write_archive(path, meta, arrays)
+    leaves = _collected_leaves(segs)
+    failed = None
+    if leaves is not None:
+        arrays: List[Tuple[str, np.ndarray]] = [
+            (f"active/{name}", leaf) for name, leaf in leaves.items()]
+        if segs._hist_freqs is not None:
+            arrays.append(("hist_freqs",
+                           np.asarray(segs._hist_freqs, np.int64)))
+        for i, fz in enumerate(segs.frozen):
+            for s, member in enumerate(fz.members):
+                prefix = (f"frozen/{i}/shard{s}" if kind == "sharded"
+                          else f"frozen/{i}")
+                arrays.append((f"{prefix}/offsets",
+                               np.asarray(member.offsets, np.int64)))
+                arrays.append((f"{prefix}/data",
+                               np.asarray(member.data, np.uint32)))
+        try:
+            write_archive(path, meta, arrays)
+        except OSError as exc:
+            failed = exc
+    # every rank returns once the file is in place, or raises
+    mesh = getattr(segs, "mesh", None)
+    if mesh is not None and mesh.combine(failed is not None, "max") \
+            and failed is None:
+        raise OSError(f"shard 0's rank could not write the snapshot {path}")
+    if failed is not None:
+        raise failed
     return meta
 
 
@@ -295,11 +335,15 @@ def _build_engine(meta: Dict[str, Any], arrays: Dict[str, np.ndarray],
                                  cfg["docs_per_segment"], device=device,
                                  **kwargs)
 
-    # -- active pool: every PoolState leaf, checked against the engine's
+    # -- active pool: every PoolState leaf (a rank mesh's own shard's
+    # rows), checked against the engine's
     init = convert.pool_state_to_numpy(eng.segments.active.state)
     leaves = {}
     for name, ref in init.items():
         arr = _leaf(arrays, f"active/{name}")
+        if kind == "sharded":    # the mesh's local shards: consecutive rows
+            lo = eng.segments.mesh.local_shards[0]
+            arr = arr[lo: lo + ref.shape[0]]
         if arr.shape != ref.shape or arr.dtype != ref.dtype:
             raise CorruptSnapshotError(
                 f"leaf active/{name}: archive {arr.dtype}{arr.shape} "
@@ -348,8 +392,9 @@ def restore(path: str, *, mesh=None, device="cuda", **overrides):
     (or, from a sharded archive, a ``ShardedLifecycleEngine``) on
     ``device`` from a snapshot archive written by either package.
     ``mesh`` is used only by sharded archives: ``None`` builds
-    ``make_doc_mesh(S, device=device)`` over the saved shard count, and
-    a mesh of another shard count raises ``ValueError``.  ``overrides``
+    ``make_doc_mesh(S, device=device)`` over the saved shard count, a
+    rank mesh (``make_rank_mesh``) keeps this rank's shard, and a mesh
+    of another shard count raises ``ValueError``.  ``overrides``
     are constructor keyword overrides (e.g. ``use_kernel=False``,
     ``validate=True``); with ``validate`` the structural validators run
     on the restored state."""
@@ -551,6 +596,62 @@ def _crc(arr) -> int:
     return zlib.crc32(np.ascontiguousarray(np.asarray(arr)).tobytes())
 
 
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat: List[int]) -> List[int]:
+    return [_gf2_times(mat, m) for m in mat]
+
+
+def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """zlib's ``crc32_combine`` (Python's ``zlib`` does not expose it):
+    the CRC32 of ``A + B`` from ``crc32(A)``, ``crc32(B)`` and
+    ``len(B)``, by appending ``len(B)`` zero bytes to ``crc1`` with
+    squared GF(2) operators."""
+    odd = [0xEDB88320] + [1 << n for n in range(31)]   # one zero bit
+    even = _gf2_square(odd)                            # two
+    odd = _gf2_square(even)                            # four
+    while len2 > 0:
+        even = _gf2_square(odd)        # one zero byte, then doubling
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _gf2_square(even)
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+    return crc1 ^ crc2
+
+
+def _active_crcs(segs) -> Dict[str, int]:
+    """``_crc`` of each active leaf in the reference's dtypes, every
+    shard: each process CRCs its own rows, and on a rank mesh the
+    ranks' ``(crc, bytes)`` pairs are all-gathered and joined in shard
+    order (:func:`_crc32_combine`), so no rank needs another's rows."""
+    leaves = convert.pool_state_to_numpy(segs.active.state)
+    parts = torch.tensor([[[_crc(a), a.nbytes] for a in leaves.values()]],
+                         dtype=torch.int64)
+    mesh = getattr(segs, "mesh", None)
+    if mesh is not None:
+        parts = mesh.stack(parts)
+    out = {}
+    for j, name in enumerate(leaves):
+        (crc, _), *rest = parts[:, j].tolist()
+        for c, n in rest:
+            crc = _crc32_combine(crc, c, n)
+        out[f"active/{name}"] = crc
+    return out
+
+
 def engine_fingerprint(engine) -> Dict[str, Any]:
     """CRC32 digest of everything the recovery contract reproduces
     bit for bit — every active ``PoolState`` leaf (in the reference's
@@ -559,9 +660,7 @@ def engine_fingerprint(engine) -> Dict[str, Any]:
     ``engine_fingerprint`` of the same state.  Take it before scored
     queries, which bump the block-skip stats."""
     segs = engine.segments
-    fp: Dict[str, Any] = {
-        f"active/{name}": _crc(leaf) for name, leaf in
-        convert.pool_state_to_numpy(segs.active.state).items()}
+    fp: Dict[str, Any] = dict(_active_crcs(segs))
     fp["next_docid"] = int(segs.active.next_docid)
     fp["doc_base"] = int(segs._doc_base)
     fp["n_rollovers"] = int(segs.n_rollovers)

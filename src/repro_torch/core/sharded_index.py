@@ -3,38 +3,53 @@
 The paper's production deployment document-partitions the tweet stream
 across machines; each partition runs an independent slice-pool allocator
 and queries fan out to every partition, whose reverse-chronological hit
-lists are merged at the front end (paper §3).  The port keeps every
-shard in one process on one device:
+lists are merged at the front end (paper §3).  The port runs it on
+either of two meshes, through one code path:
+
+  * :func:`make_doc_mesh` stacks every shard in one process on one
+    device (row ``s`` of a leading ``[S, ...]`` axis; shard-axis
+    collectives are tensor ops on that axis);
+  * :func:`make_rank_mesh` gives each process of a ``torch.distributed``
+    world one shard, as the reference's ``shard_map`` gives each device
+    one: the process's state is a ``[1, ...]`` stack, and the shard-axis
+    collectives are ``mesh_all_gather``/``mesh_psum`` over the logical
+    ``docs`` axis.  Every rank is called with the same arguments (the
+    same global ingest batch, the same query batch) and returns the same
+    answers, as the reference's ``out_specs=P()``.
 
   * **Partitioning.**  Global docid ``d`` lives on shard ``d % S`` with
     shard-local docid ``d // S``.  Round-robin interleave keeps every
     shard's local docids dense and ascending, so the single-shard
     allocator, materializer and set ops run UNCHANGED per shard.
   * **State.**  One :class:`~repro_torch.core.slicepool.PoolState` per
-    shard, stacked on a leading ``[S, ...]`` axis
+    local shard, stacked on a leading axis
     (:func:`~repro_torch.core.slicepool.init_sharded_state`); the mesh
-    (:func:`make_doc_mesh`) fixes the shard count and the device.
-  * **Ingest.**  Each shard's ``[B/S, L]`` doc block runs the
+    fixes the shard count, the local shards and the device.
+  * **Ingest.**  Each local shard's ``[B/S, L]`` doc block runs the
     single-device bulk allocator on that shard's row views, so the
-    ``bulk_append`` kernel writes the shard's rows in place: S launches
-    (and S host syncs of the plan) per arrival batch.
-  * **Query.**  Each shard evaluates the whole query batch with the
-    single-device engine (conjunctions through the ``intersect_mask``
-    kernel, one launch per term fold over all Q rows); shard-local
-    ascending lists become global docids (``g = local * S + shard``),
-    descending, are gathered over the shard axis and merged with
-    :func:`merge_desc`.  Shards own disjoint residue classes, so the
-    merge is duplicate-free and bit-identical to the single-device
-    engine.
+    ``bulk_append`` kernel writes the shard's rows in place: one launch
+    (and one host sync of the plan) per local shard per arrival batch,
+    and no communication.
+  * **Query.**  Each local shard evaluates the whole query batch with
+    the single-device engine (conjunctions through the
+    ``intersect_mask`` kernel, one launch per term fold over all Q
+    rows); shard-local ascending lists become global docids
+    (``g = local * S + shard``), descending, are gathered over the shard
+    axis in shard order and merged with :func:`merge_desc`.  Shards own
+    disjoint residue classes, so the merge is duplicate-free and
+    bit-identical to the single-device engine.
   * **Rollover / compaction.**  Every shard freezes to its own CSR
-    segment with global-within-segment docids
-    (:class:`ShardedFrozenSegment`), its slices go back on its own free
-    lists, and :meth:`ShardedSegmentSet.compact` merges segments shard by
-    shard.
+    segment with global-within-segment docids on its own device, its
+    slices go back on its own free lists, and on a rank mesh the S CSRs
+    are then all-gathered (:func:`gather_frozen`), so every rank holds
+    the whole :class:`ShardedFrozenSegment`, as the reference's single
+    controller does.  :meth:`ShardedSegmentSet.compact` merges segments
+    shard by shard, the same on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -47,8 +62,10 @@ from repro_torch.core import slicepool
 from repro_torch.core.index import flatten, gather_start_pools
 from repro_torch.core.pointers import PoolLayout
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
 
 INVALID = 0xFFFFFFFF
+DOCS_AXIS = coll.RankMesh.axis  # the document-partition axis: "docs"
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +76,58 @@ def make_doc_mesh(n_shards: int, *, device="cuda") -> coll.Mesh:
     if int(n_shards) < 1:
         raise ValueError(f"need at least one shard, got {n_shards}")
     return coll.Mesh(int(n_shards), torch.device(device))
+
+
+def make_rank_mesh(n_shards: Optional[int] = None, *,
+                   rules: Optional[shd.Rules] = None,
+                   device="cuda") -> coll.RankMesh:
+    """This process's shard of a mesh of ranks, one shard per process
+    (the reference's ``make_doc_mesh`` returns the ``(mesh, rules)``
+    this stands for).  Without ``rules`` it builds ``host_mesh((n,),
+    ("data",))`` over the current world and ``default_rules`` on it
+    (``docs -> data``); with ``rules`` the shard count is the product of
+    the mesh dims ``docs`` maps to and the shard id is row-major over
+    them.  ``device`` holds the shard's state and is the caller's
+    choice (``cuda:<local rank>`` for one rank a card, the same card for
+    gloo ranks sharing it, ``cpu`` for CPU ranks).  Raises when the
+    device is a card and there is none, when the world is smaller than
+    the mesh, and when ``rules`` map ``docs`` to no mesh dim."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_rank_mesh(device='cuda') needs a CUDA device; pass "
+            "device='cpu' for CPU ranks")
+    if rules is None:
+        if n_shards is None:
+            raise ValueError("make_rank_mesh: give n_shards or rules")
+        rules = shd.default_rules(coll.host_mesh((int(n_shards),),
+                                                 ("data",)))
+    axes = rules.axes(DOCS_AXIS)
+    if not axes:
+        raise ValueError(
+            f"rules table maps {DOCS_AXIS!r} to no mesh axis; the sharded "
+            f"index needs a docs-partition axis (see dist.sharding)")
+    shape = shd.mesh_shape(rules.mesh)
+    names = shd.mesh_axis_names(rules.mesh)
+    coord = rules.mesh.get_coordinate()
+    if coord is None:
+        raise RuntimeError("make_rank_mesh: this rank is not in the mesh")
+    n, shard = 1, 0
+    for a in axes:
+        n *= shape[a]
+        shard = shard * shape[a] + int(coord[names.index(a)])
+    if n_shards is not None and int(n_shards) != n:
+        raise ValueError(f"rules give {n} docs shards, asked for "
+                         f"{n_shards}")
+    # the global ranks of this rank's docs group, in shard order: the
+    # other dims fixed at this rank's coordinate, the docs dims row-major
+    ranks, at = rules.mesh.mesh, [int(c) for c in coord]
+    peers = []
+    for ids in itertools.product(*(range(shape[a]) for a in axes)):
+        for a, i in zip(axes, ids):
+            at[names.index(a)] = i
+        peers.append(int(ranks[tuple(at)]))
+    return coll.RankMesh(n, shard, dev, rules, tuple(peers))
 
 
 # ---------------------------------------------------------------------------
@@ -119,11 +188,15 @@ def topk_merge_desc(lists_desc, ns, k: Optional[int] = None):
 class ShardedActiveSegment:
     """Document-sharded :class:`~repro_torch.core.index.ActiveSegment`.
 
-    ``state`` leaves carry a leading shard axis ``[S, ...]`` on the
-    mesh's device; ingest batches must be a multiple of S documents so
-    the round-robin partition gives every shard the same local docid
-    range (global docids stay those of an unsharded ingest of the same
-    stream)."""
+    ``state`` leaves carry a leading axis over the mesh's LOCAL shards
+    (``[S, ...]`` stacked, ``[1, ...]`` on a rank mesh) on the mesh's
+    device; ingest batches must be a multiple of S documents so the
+    round-robin partition gives every shard the same local docid range
+    (global docids stay those of an unsharded ingest of the same
+    stream).  The counts (:meth:`term_freqs`, the slot counts,
+    :meth:`pool_utilization`, :meth:`check_health`) are global: on a
+    rank mesh they are reduced over the ranks, so each is a collective
+    every rank calls."""
     layout: PoolLayout
     vocab_size: int
     mesh: coll.Mesh
@@ -136,7 +209,7 @@ class ShardedActiveSegment:
         self.num_shards = self.mesh.num_shards
         if self.state is None:
             self.state = slicepool.init_sharded_state(
-                self.layout, self.vocab_size, self.num_shards,
+                self.layout, self.vocab_size, len(self.mesh.local_shards),
                 self.mesh.device)
         if self.bulk_ingest:
             self._ingest = slicepool.make_bulk_ingest_fn(
@@ -152,7 +225,9 @@ class ShardedActiveSegment:
     def ingest(self, docs, term_start_pools=None) -> int:
         """Index ``docs`` (int32[B, L] term ids, -1 padded, B % S == 0):
         doc j (global docid base + j) goes to row j // S of shard
-        j % S.  Each shard's state is updated through its row views."""
+        j % S.  Each local shard's state is updated through its row
+        views; on a rank mesh every rank is given the same global batch
+        and indexes its own shard's block."""
         S = self.num_shards
         dev = self.state.heap.device
         docs = torch.as_tensor(docs, device=dev)
@@ -171,15 +246,15 @@ class ShardedActiveSegment:
         base_local = self.next_docid // S
         table = (None if term_start_pools is None
                  else torch.as_tensor(term_start_pools, device=dev))
-        for s in range(S):
+        for i, s in enumerate(self.mesh.local_shards):
             terms, plist, valid = flatten(by_shard[s], base_local)
             start_pools = (None if table is None else
                            gather_start_pools(table, terms, self.vocab_size))
-            out = self._ingest(slicepool.shard_view(self.state, s), terms,
+            out = self._ingest(slicepool.shard_view(self.state, i), terms,
                                plist, start_pools, valid)
             # the bulk allocator wrote heap/tail/freq through the views;
             # the leaves it returns new (and all of the scan's) land here
-            for old, new in zip(slicepool.shard_view(self.state, s), out):
+            for old, new in zip(slicepool.shard_view(self.state, i), out):
                 if new.data_ptr() != old.data_ptr():
                     old.copy_(new)
         self.next_docid += batch
@@ -187,16 +262,28 @@ class ShardedActiveSegment:
 
     def term_freqs(self) -> np.ndarray:
         """Global per-term frequency (sum over shards)."""
-        return self.state.freq.cpu().numpy().sum(axis=0)
+        return self.mesh.sum(self.state.freq.long().cpu()).numpy()
 
     def memory_slots_used(self) -> int:
-        return slicepool.memory_slots_used(self.layout, self.state)
+        return self.mesh.combine(
+            slicepool.memory_slots_used(self.layout, self.state))
+
+    def memory_high_water_slots(self) -> int:
+        return self.mesh.combine(
+            slicepool.memory_high_water_slots(self.layout, self.state))
 
     def shard_slots_used(self) -> np.ndarray:
-        return slicepool.shard_slots_used(self.layout, self.state)
+        return self.mesh.stack(torch.as_tensor(
+            slicepool.shard_slots_used(self.layout, self.state))).numpy()
+
+    def pool_utilization(self) -> float:
+        """The worst pool of the worst shard (max over the ranks)."""
+        return self.mesh.combine(
+            slicepool.pool_utilization(self.layout, self.state), "max")
 
     def check_health(self) -> None:
-        if bool(self.state.overflow.any()):
+        """Raises on every rank when any shard's pools overflowed."""
+        if self.mesh.combine(bool(self.state.overflow.any()), "max"):
             raise MemoryError(
                 "slice pools exhausted on at least one shard; raise "
                 "slices_per_pool in the layout")
@@ -206,7 +293,9 @@ class ShardedActiveSegment:
 # Batched sharded query engine
 # ---------------------------------------------------------------------------
 class ShardedQueryEngine(NamedTuple):
-    """Batched multi-query evaluation over a stacked PoolState.
+    """Batched multi-query evaluation over the mesh's local shards of a
+    sharded PoolState (every rank of a rank mesh returns the merged
+    answer).
 
     All callables take query BATCHES (leading ``Q`` axis) and return
     ``(desc int64[Q, S * W], n int32[Q])`` — globally-descending docids,
@@ -248,19 +337,21 @@ def make_sharded_engine(layout: PoolLayout, mesh: coll.Mesh,
                              use_kernel=use_kernel)
 
     def _fan_out(state, one):
-        """Run ``one(shard_state) -> (asc, extra..., n)`` on every shard
-        and gather the globalised descending lists over the shard axis:
-        returns the gathered ``[Q, S * W]`` lists (with any extra lanes
-        flipped alongside) and the summed counts."""
+        """Run ``one(shard_state) -> (asc, extra..., n)`` on every local
+        shard and gather the globalised descending lists over the shard
+        axis, in shard order: returns the gathered ``[Q, S * W]`` lists
+        (with any extra lanes flipped alongside) and the summed counts
+        (on a rank mesh ``mesh_all_gather`` and ``mesh_psum`` over
+        ``docs``, so every rank returns the merged answer)."""
         outs = []
-        for s in range(S):
-            asc, *extra, n = one(slicepool.shard_view(state, s))
+        for i, s in enumerate(mesh.local_shards):
+            asc, *extra, n = one(slicepool.shard_view(state, i))
             g = local_to_global(asc, s, S)
             outs.append([q.asc_to_desc(g, n)]
                         + [q.flip_valid(x, n, 0) for x in extra] + [n])
-        cols = [torch.stack(c) for c in zip(*outs)]       # [S, Q, ...]
-        gathered = [coll.all_gather(c, axis=1) for c in cols[:-1]]
-        return gathered, coll.psum(cols[-1])
+        cols = [torch.stack(c) for c in zip(*outs)]       # [L, Q, ...]
+        gathered = [mesh.gather(c, axis=1) for c in cols[:-1]]
+        return gathered, mesh.sum(cols[-1])
 
     def conjunctive(state, terms, n_terms):
         fn = _engine(terms).conjunctive_asc
@@ -358,6 +449,35 @@ class ShardedFrozenSegment:
         return codecs, total
 
 
+def gather_frozen(mesh, local: List[seg_mod.FrozenSegment]
+                  ) -> List[seg_mod.FrozenSegment]:
+    """Every shard's frozen CSR, in shard order, from the local ones.
+
+    On a stacked mesh ``local`` is already all of them.  On a rank mesh
+    the S host CSRs are all-gathered over ``docs`` from host memory (no
+    card copy over gloo): the offsets (``V + 1`` int64, one length for
+    all) directly; the data, whose lengths differ, by gathering the
+    lengths first and then the data padded to the longest, as int32 bit
+    patterns of the uint32 postings, each cut back to its own length.
+    The other ranks' members come without ``freed_slices`` (their
+    slices went back on their own ranks' free lists)."""
+    if len(local) == mesh.num_shards:
+        return list(local)
+    (own,) = local
+    lens = mesh.stack(torch.tensor([own.data.size])).tolist()
+    pad = np.zeros((1, max(max(lens), 1)), np.uint32)
+    pad[0, : own.data.size] = own.data
+    data = mesh.stack(torch.from_numpy(pad.view(np.int32))).numpy()
+    data = data.view(np.uint32)
+    offs = mesh.stack(torch.from_numpy(
+        np.ascontiguousarray(own.offsets[None], np.int64))).numpy()
+    return [own if s == mesh.shard else seg_mod.FrozenSegment(
+                offsets=offs[s].copy(), data=data[s, : lens[s]].copy(),
+                n_docs=own.n_docs, doc_base=own.doc_base,
+                freed_slices=None, tier=own.tier)
+            for s in range(mesh.num_shards)]
+
+
 class ShardedSegmentSet:
     """Active sharded segment + frozen per-shard history (paper §3.1)."""
 
@@ -409,14 +529,15 @@ class ShardedSegmentSet:
         seg = self.active
         S = seg.num_shards
         st = seg.state
-        shards = [
+        local = [
             seg_mod.freeze_state(
-                self.layout, st.heap[s], st.tail[s], st.freq[s],
+                self.layout, st.heap[i], st.tail[i], st.freq[i],
                 n_docs=seg.next_docid // S, doc_base=self._doc_base,
                 docid_map=lambda ids, s=s: ids * np.uint32(S) + np.uint32(s))
-            for s in range(S)
+            for i, s in enumerate(self.mesh.local_shards)
         ]
-        fz = ShardedFrozenSegment(shards, n_docs=seg.next_docid,
+        fz = ShardedFrozenSegment(gather_frozen(self.mesh, local),
+                                  n_docs=seg.next_docid,
                                   doc_base=self._doc_base)
         # H(t): the freqs of THIS rollover, taken before any compaction
         # can merge the segment into a multi-rollover tier
@@ -427,7 +548,7 @@ class ShardedSegmentSet:
             self.frozen.pop(0)  # oldest segment retired (bounded set)
         self._doc_base += seg.next_docid
         released = slicepool.release_slices(
-            self.layout, seg.state, [sh.freed_slices for sh in shards])
+            self.layout, seg.state, [sh.freed_slices for sh in local])
         self.active = self._new_active(state=released)
         self._apply_compaction()
         return fz

@@ -20,12 +20,31 @@ rank's local tensor -- the counterpart of the reference's ``lax``
 collectives inside ``shard_map``.  An unmapped name is an exact no-op
 (the tensor itself comes back).
 
+A collective's result lies where its input lies; the transport is the
+backend's.  Over gloo a CUDA tensor is staged through host memory by the
+collective itself (copied to the CPU, reduced or gathered there, copied
+back to its device): the functional collectives crash on gloo with CUDA
+tensors on the card's torch 2.11.  A host tensor therefore crosses gloo
+with no copy, and over NCCL it travels through the current CUDA device.
+Compute stays where the caller put it; only the transport moves.
+
+**One shard per process** (:class:`RankMesh`).  The counterpart of the
+reference's ``(mesh, rules)`` for the document-sharded index: this
+rank holds one shard (its id row-major over the mesh dims the logical
+``docs`` axis maps to) on its own device, and the shard-axis reductions
+the stacked :class:`Mesh` does on its leading axis become the
+process-group collectives above.  Both meshes answer the same small
+interface (``local_shards``, ``stack``, ``collect``, ``gather``,
+``sum``, ``combine``), so the index runs one code path over either.
+
 **Worlds.**  :func:`fake_world` is a world of ``n`` ranks that moves no
 data (``torch.distributed``'s fake backend): the counterpart of the
 reference's ``force_host_device_count`` for the dry-run, which traces
-on ``meta`` tensors.  :func:`require_devices` fails fast when the world
-is smaller than asked, and :func:`host_mesh` builds a ``DeviceMesh``
-over the current world.
+on ``meta`` tensors.  :func:`process_world` starts and destroys a real
+world (from torchrun's environment, or from an explicit rank, size and
+port) over the backend the caller names.  :func:`require_devices`
+fails fast when the world is smaller than asked, and :func:`host_mesh`
+builds a ``DeviceMesh`` over the current world.
 """
 from __future__ import annotations
 
@@ -40,10 +59,41 @@ from repro_torch.dist import sharding as _sh
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``num_shards`` document shards stacked on ``device``."""
+    """``num_shards`` document shards stacked on ``device``: every shard
+    is local, and a shard-axis collective is a tensor op on the leading
+    ``[S, ...]`` axis."""
 
     num_shards: int
     device: torch.device
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        """The global ids of the shards this process holds, in the order
+        of its state's leading axis."""
+        return tuple(range(self.num_shards))
+
+    def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's row of ``x[L, ...]`` as ``[S, ...]`` in shard
+        order (here ``x`` itself)."""
+        return x
+
+    def collect(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every shard's row of ``x[L, ...]`` as ``[S, ...]`` on shard
+        0's process, ``None`` on the others (here ``x`` itself)."""
+        return x
+
+    def gather(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
+        """:func:`all_gather` of the local stack ``x[L, ...]``."""
+        return all_gather(x, axis=axis)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`psum` of the local stack ``x[L, ...]``."""
+        return psum(x)
+
+    def combine(self, value, op: str = "sum"):
+        """A host number already reduced over the local shards, reduced
+        over every process (here: the value itself)."""
+        return value
 
 
 def all_gather(x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
@@ -103,6 +153,52 @@ def fake_world(n: int):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def process_world(backend: str, *, rank: Optional[int] = None,
+                  world_size: Optional[int] = None,
+                  port: Optional[int] = None, host: str = "localhost",
+                  timeout_s: Optional[float] = None):
+    """A default process group over ``backend`` for the body of the
+    ``with``, destroyed on exit; yields ``(rank, world_size)``.
+
+    The caller names the backend: ``"nccl"`` for one rank a card,
+    ``"gloo"`` for CPU ranks or for several ranks sharing one card (NCCL
+    refuses two ranks of one communicator on one GPU).  With ``rank``,
+    ``world_size`` and ``port`` the ranks meet at ``tcp://host:port``;
+    with none of them the world comes from torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
+    ``timeout_s`` bounds every collective, so a rank left waiting for a
+    dead peer raises instead of hanging."""
+    import datetime
+    import torch.distributed as dist
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"process_world: backend {backend!r} is neither "
+                         f"'nccl' nor 'gloo'")
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("process_world('nccl') needs a CUDA device; "
+                           "name 'gloo' for CPU ranks")
+    if dist.is_initialized():
+        raise RuntimeError("process_world: a process group already exists")
+    given = (rank, world_size, port)
+    kw = {}
+    if all(v is None for v in given):
+        init = "env://"
+    elif any(v is None for v in given):
+        raise ValueError("process_world: give rank, world_size and port "
+                         "together, or none of them (torchrun's "
+                         "environment)")
+    else:
+        init = f"tcp://{host}:{int(port)}"
+        kw = dict(rank=int(rank), world_size=int(world_size))
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout_s))
+    dist.init_process_group(backend, init_method=init, **kw)
+    try:
+        yield dist.get_rank(), dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+
+
 def require_devices(n: int) -> None:
     """Fail fast (with the fix spelled out) when the world -- the default
     group's ranks, else the CUDA devices -- is smaller."""
@@ -152,6 +248,25 @@ def _groups(rules: _sh.Rules, axes: Tuple[str, ...]):
     return [(rules.mesh, names.index(a)) for a in reversed(axes)]
 
 
+def _staged(x: torch.Tensor, backends):
+    """``(x to send, device to bring the result back to)`` over groups
+    of ``backends``: a CUDA tensor bound for gloo travels through host
+    memory (gloo's functional collectives crash on CUDA tensors), a host
+    tensor bound for NCCL through the current CUDA device; otherwise
+    ``x`` itself and ``None``."""
+    backends = set(backends)
+    if x.is_cuda and "gloo" in backends:
+        return x.cpu(), x.device
+    if x.device.type == "cpu" and backends == {"nccl"}:
+        return x.cuda(), x.device
+    return x, None
+
+
+def _backends(groups):
+    import torch.distributed as dist
+    return [dist.get_backend(m.get_group(d)) for m, d in groups]
+
+
 def _wait(t):
     from torch.distributed import _functional_collectives as funcol
     return funcol.wait_tensor(t) if isinstance(
@@ -170,9 +285,13 @@ def axis_size(logical: str, rules: Optional[_sh.Rules] = None) -> int:
 def _reduce(x, op: str, logical: str, rules):
     from torch.distributed import _functional_collectives as funcol
     rules, axes = _resolve(logical, rules)
-    for group in _groups(rules, axes) if axes else ():
+    if not axes:
+        return x
+    groups = _groups(rules, axes)
+    x, home = _staged(x, _backends(groups))
+    for group in groups:
         x = _wait(funcol.all_reduce(x, op, group))
-    return x
+    return x if home is None else x.to(home)
 
 
 def mesh_psum(x, logical: str, rules: Optional[_sh.Rules] = None):
@@ -197,9 +316,13 @@ def mesh_all_gather(x, logical: str, *, axis: int = 0,
     outer mesh dim major; identity when unmapped)."""
     from torch.distributed import _functional_collectives as funcol
     rules, axes = _resolve(logical, rules)
-    for group in _groups(rules, axes) if axes else ():
+    if not axes:
+        return x
+    groups = _groups(rules, axes)
+    x, home = _staged(x, _backends(groups))
+    for group in groups:
         x = _wait(funcol.all_gather_tensor(x.contiguous(), axis, group))
-    return x
+    return x if home is None else x.to(home)
 
 
 def mesh_all_to_all(x, logical: str, *, split_axis: int, concat_axis: int,
@@ -217,7 +340,83 @@ def mesh_all_to_all(x, logical: str, *, split_axis: int, concat_axis: int,
         raise ValueError(f"mesh_all_to_all over {axes}: one mesh dim only")
     (group,) = _groups(rules, axes)
     g = axis_size(logical, rules)
-    y = x.movedim(split_axis, 0).contiguous()
+    y, home = _staged(x.movedim(split_axis, 0).contiguous(),
+                      _backends([group]))
     y = _wait(funcol.all_to_all_single(y, None, None, group))
+    y = y if home is None else y.to(home)
     y = y.unflatten(0, (g, -1)).movedim(1, split_axis + 1)
     return y.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+# ---------------------------------------------------------------------------
+# One document shard per process
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """This rank's document shard of ``num_shards``: ``shard`` is its id
+    (row-major over the mesh dims the logical ``docs`` axis maps to, as
+    the reference's ``_shard_index``), ``device`` holds its state,
+    ``rules`` maps ``docs`` onto a ``DeviceMesh`` of the world, and
+    ``peers`` are the global ranks of this rank's ``docs`` group in
+    shard order.  Its state keeps the stacked layout with one row
+    (``[1, ...]``), and the shard-axis collectives of :class:`Mesh`
+    become ``mesh_all_gather`` and ``mesh_psum``/``mesh_pmax`` over
+    ``axis``: every rank of the axis must make the same calls in the
+    same order.  Built by
+    ``repro_torch.core.sharded_index.make_rank_mesh``."""
+
+    num_shards: int
+    shard: int
+    device: torch.device
+    rules: _sh.Rules
+    peers: Tuple[int, ...]
+    axis = "docs"      # the logical axis of the shards
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        return (self.shard,)
+
+    def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x[1, ...]`` as ``[S, ...]`` in shard order."""
+        return mesh_all_gather(x, self.axis, axis=0, rules=self.rules)
+
+    def collect(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every rank's ``x[1, ...]`` as ``[S, ...]`` in shard order on
+        shard 0's rank, ``None`` on the others: point-to-point sends to
+        shard 0 over the default group, so no other rank holds the
+        whole.  The result lies where ``x`` lies (gloo sends host
+        tensors, NCCL device tensors)."""
+        import torch.distributed as dist
+        t, home = _staged(x.contiguous(), [dist.get_backend()])
+        if self.shard != 0:
+            dist.send(t, self.peers[0])
+            return None
+        parts = [t]
+        for peer in self.peers[1:]:
+            parts.append(torch.empty_like(t))
+            dist.recv(parts[-1], peer)
+        out = torch.cat(parts)
+        return out if home is None else out.to(home)
+
+    def gather(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
+        """The tiled all-gather of each rank's ``x[0]`` along ``axis``:
+        the stacked :func:`all_gather`'s bits."""
+        return mesh_all_gather(x[0], self.axis, axis=axis, rules=self.rules)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[0]`` summed over the ranks (the stacked :func:`psum`)."""
+        return mesh_psum(x[0], self.axis, rules=self.rules)
+
+    def combine(self, value, op: str = "sum"):
+        """A host number (this rank's shard's) summed (``op="sum"``) or
+        maxed (``"max"``) over the ranks; int64 for ints and bools,
+        float64 for floats, so every rank gets the same exact value."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"combine: op {op!r} is neither 'sum' nor "
+                             f"'max'")
+        is_float = isinstance(value, float)
+        t = torch.tensor([value if is_float else int(value)],
+                         dtype=torch.float64 if is_float else torch.int64)
+        fn = mesh_psum if op == "sum" else mesh_pmax
+        out = fn(t, self.axis, rules=self.rules)[0].item()
+        return float(out) if is_float else int(out)

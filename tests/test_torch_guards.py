@@ -213,6 +213,42 @@ def test_no_module_waits_for_the_mesh_slice():
         assert s not in src, s
 
 
+def test_rank_mesh_slice_is_scanned_and_waits_for_nothing():
+    """The index on ranks is in: the import and docstring scans above
+    cover every module it touched, and no docstring or comment of the
+    port says the shard axis waits for a ``torch.distributed`` backend
+    or keeps every shard in one process."""
+    rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("src/repro_torch/core/sharded_index.py",
+                 "src/repro_torch/dist/collectives.py",
+                 "src/repro_torch/core/lifecycle.py",
+                 "src/repro_torch/core/recovery.py",
+                 "src/repro_torch/analysis/invariants.py",
+                 "chip_smoke.py"):
+        assert must in rel, must
+    src = "\n".join(p.read_text(encoding="utf-8") for p in PORT_FILES)
+    for s in ("backend for the shard axis", "keeps every shard in one",
+              "Waiting for more than one card"):
+        assert s not in src, s
+    assert callable(tsh.make_rank_mesh)
+
+
+def test_ranked_path_picks_no_backend_and_no_device_by_itself():
+    """``process_world`` has no default backend; ``make_rank_mesh`` runs
+    on the card unless asked for the CPU, and raises without one; a
+    world is started only by ``dist/collectives.py`` (and the dry-run's
+    one-card mesh), with the backend the caller names."""
+    from repro_torch.dist import collectives as tcoll
+    params = inspect.signature(tcoll.process_world).parameters
+    assert params["backend"].default is inspect.Parameter.empty
+    assert inspect.signature(tsh.make_rank_mesh).parameters[
+        "device"].default == "cuda"
+    users = sorted(p.relative_to(ROOT).as_posix() for p in PORT_FILES
+                   if "init_process_group(" in p.read_text(encoding="utf-8"))
+    assert users == ["src/repro_torch/dist/collectives.py",
+                     "src/repro_torch/launch/dryrun.py"]
+
+
 def test_fake_backend_imported_in_one_module():
     """``torch.testing._internal`` (private: the fake process group) is
     imported by ``dist/collectives.py`` alone."""
