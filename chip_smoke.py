@@ -126,8 +126,20 @@ Phases, in order (any failure raises and exits non-zero):
      calls (at full width) replayed bit-equal to the plain version after
      the counts are read; per rank docs/s, rollover s, ms per
      query batch, launches, ``max_memory_allocated`` and the card's used
-     memory; (ii) one NCCL rank at (b)'s depth, beside (i) on the card,
-     with ``validate=True``, every
+     memory; then, on the same full-width engine, the ranked
+     ``ServeLoop`` (shard 0's rank leads on its clock and broadcasts a
+     plan a step; the others follow): one step under the gauge, one at
+     rung 0 and one at rung 3, each with a 4096-tweet batch and one
+     request of each kind, every dispatch taking the card's turn for its
+     frozen side; the leader's responses held here against the brute
+     force at their rungs, every rank's ``check_serve`` ok and its
+     ``bulk_append`` launches = applied batches, the three query kernels
+     launched on every rank; then, with that engine freed, at (b)'s
+     depth a crash inside a rollover under the ranked loop with requests
+     in flight, ``recover(mesh=)`` and ``resume_with`` on every rank
+     (fingerprint equal to an uncrashed ranked run's) and every
+     ``FaultPlan`` kind on the ranks; (ii) one NCCL rank at (b)'s depth,
+     beside (i) on the card, with ``validate=True``, every
      kind batched and ``batched=False`` against the brute force; (iii)
      four NCCL ranks, one a card, at (i)'s size, only where the machine
      has four cards (the log says whether it ran).  Phase 8 runs last
@@ -2173,6 +2185,9 @@ def phase_index(segment_log2: int, serve_only: bool = False):
         if name != "segment_intersect_mask":
             paths["sharded"] = sharded["launches"][name]
             paths["ranks"] = sharded["ranks"]["launches"][name]
+            paths["ranks_serve"] = sum(
+                n[name] for n in sharded["ranks"]["gloo"]["serving"][
+                    "launches"])
         paths["ranks_nccl"] = sharded["ranks"]["nccl1"]["launches"][name]
         row = dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2552,6 +2567,7 @@ def sharded_serving() -> dict:
                              f"retry-after, got {rej!r}")
     h4.segments.rollover()
     h4._sync_frozen()
+    loop.refresh_pressure()          # the engine changed outside step()
     if not isinstance(loop.submit_ingest(batches[0]), int):
         raise AssertionError("the retried batch was rejected after the "
                              "rollover")
@@ -2675,19 +2691,28 @@ def phase_sharded_small(tmp: str) -> dict:
 RANK_SHARDS = 4               # rank processes of (i) and (iii)
 RANK_QUERIES = 8              # phase 3's first 8 queries of each kind
 RANK_TIMEOUT = 600            # s: each rank world, and each collective
+# the ranked serving stretch: one step a rung, None for the gauge; a
+# bucket of one request of each kind before each step (max_batch 8, cut
+# from 32: each dispatch takes the card's turn for its frozen side)
+RANK_STRETCH = (None, serve.DEGRADE_NONE, serve.DEGRADE_FROZEN_ONLY)
+RANK_BUCKET = 8
+
+
+def answer_digest(a) -> str:
+    """sha256 of one answer over int64 bytes (a scored answer's docids
+    then scores)."""
+    h = hashlib.sha256()
+    for part in (a if isinstance(a, tuple) else (a,)):
+        h.update(np.ascontiguousarray(part, np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
 
 
 def answer_digests(answers: dict) -> dict:
-    """``{kind: [sha256 of each answer]}`` over int64 bytes (a scored
-    answer's docids then scores): what the ranks send back to be held
-    against the brute force and phase 8a."""
-    def one(a):
-        h = hashlib.sha256()
-        for part in (a if isinstance(a, tuple) else (a,)):
-            h.update(np.ascontiguousarray(part, np.int64).tobytes())
-            h.update(b"|")
-        return h.hexdigest()
-    return {kind: [one(a) for a in got] for kind, got in answers.items()}
+    """``{kind: [sha256 of each answer]}``: what the ranks send back to
+    be held against the brute force and phase 8a."""
+    return {kind: [answer_digest(a) for a in got]
+            for kind, got in answers.items()}
 
 
 def _free_port() -> int:
@@ -2865,11 +2890,24 @@ def rank_full(cfg: dict, mesh) -> dict:
     slots = (eng.memory_slots_used(),
              eng.segments.active.shard_slots_used().tolist())
     shapes = sorted({(c[0][2], c[1][2]) for c in calls})
+    n_calls = len(calls)
     t0 = time.perf_counter()
     err = replay_intersect_calls(calls, f"shard {mesh.shard}")
+    t_replay = time.perf_counter() - t0
+    del calls
+    t0 = time.perf_counter()
+    stretch = ranked_stretch(cfg, eng, mesh)
+    t_stretch = time.perf_counter() - t0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    crash = ranked_crash(cfg, mesh)
+    crash["seconds"] = time.perf_counter() - t0
     return dict(
-        intersect_calls=len(calls), intersect_shapes=shapes,
-        intersect_max_abs_err=err, replay_s=time.perf_counter() - t0,
+        stretch=stretch, stretch_s=t_stretch, crash=crash,
+        intersect_calls=n_calls, intersect_shapes=shapes,
+        intersect_max_abs_err=err, replay_s=t_replay,
         ingest_docs_per_s=(seg_docs - BATCH) / t_first,
         recycled_docs_per_s=extra / t_after, rollover_s=t_roll,
         query_ms={k: v[1] for k, v in res.items()},
@@ -2881,40 +2919,68 @@ def rank_full(cfg: dict, mesh) -> dict:
         memory_slots_used=slots[0], shard_slots=slots[1])
 
 
-def rank_queries(eng, queries, pairs, turns) -> dict:
-    """Each kind's batch of :data:`RANK_QUERIES` on this rank: ``({kind:
-    (answers, [ms], peak bytes, ms waiting for the card)}, the card's
-    most used bytes seen at the end of a batch)``.
-
-    With ``turns`` (a lock file: ranks sharing one card) the ranks take
-    turns on the card's memory for the replicated frozen side: once the
-    active fan-out (its collectives) has returned, a rank frees its
-    cached blocks and waits for the lock, evaluates the frozen side and
-    copies the answers out, then unlocks.  No collective runs while the
-    lock is held, so no rank waits in one for a rank that waits for the
-    lock.  At full width four frozen evaluations at once do not fit the
-    card (8a's disjunctive batch peaks at 35.77 GiB)."""
+@contextlib.contextmanager
+def card_turns(eng, turns):
+    """With ``turns`` (a lock file: ranks sharing one card) the ranks
+    take turns on the card's memory for the replicated frozen side: once
+    the active fan-out (its collectives) has returned, a rank frees its
+    cached blocks and waits for the lock (``take``), evaluates the frozen
+    side and copies the answers out, then unlocks (``release``).  No
+    collective runs while the lock is held, so no rank waits in one for a
+    rank that waits for the lock.  At full width four frozen evaluations
+    at once do not fit the card (8a's disjunctive batch peaks at 35.77
+    GiB).  Yields ``{"wait": s waiting for the lock, "take", "release",
+    "on"}``; without ``turns`` take and release do nothing."""
     import fcntl
     dev = eng.device
     lock = None if not turns else open(turns, "a")
     held = {"wait": 0.0, "on": False}
+
+    def take():
+        if lock is None:
+            return
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        held["wait"] += time.perf_counter() - t0
+        held["on"] = True
+
+    def release():
+        if held["on"]:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+            held["on"] = False
+            torch.cuda.empty_cache()
+
+    def after(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            take()
+            return out
+        return wrapped
+    held.update(take=take, release=release)
+    names = ("_active_batch", "_active_topk_batch", "_active_scored_batch")
     if lock is not None:
-        def take(fn):
-            def wrapped(*a, **k):
-                out = fn(*a, **k)
-                torch.cuda.synchronize(dev)
-                torch.cuda.empty_cache()
-                t0 = time.perf_counter()
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                held["wait"] += time.perf_counter() - t0
-                held["on"] = True
-                return out
-            return wrapped
-        for name in ("_active_batch", "_active_topk_batch",
-                     "_active_scored_batch"):
-            setattr(eng, name, take(getattr(eng, name)))
-    out, used = {}, 0
+        for name in names:
+            setattr(eng, name, after(getattr(eng, name)))
     try:
+        yield held
+    finally:
+        if lock is not None:
+            release()
+            lock.close()
+            for name in names:
+                del eng.__dict__[name]
+
+
+def rank_queries(eng, queries, pairs, turns) -> dict:
+    """Each kind's batch of :data:`RANK_QUERIES` on this rank, taking
+    :func:`card_turns` with the other ranks of the card: ``({kind:
+    (answers, [ms], peak bytes, ms waiting for the card)}, the card's
+    most used bytes seen at the end of a batch)``."""
+    dev = eng.device
+    out, used = {}, 0
+    with card_turns(eng, turns) as held:
         for kind, batch, call in query_calls(eng, queries, pairs):
             torch.cuda.reset_peak_memory_stats(dev)
             torch.cuda.synchronize(dev)
@@ -2926,20 +2992,232 @@ def rank_queries(eng, queries, pairs, turns) -> dict:
             peak = torch.cuda.max_memory_allocated(dev)
             free, total = torch.cuda.mem_get_info(dev)
             used = max(used, total - free)
-            if held["on"]:
-                fcntl.flock(lock, fcntl.LOCK_UN)
-                held["on"] = False
-                torch.cuda.empty_cache()
+            held["release"]()
             out[kind] = (got, [ms], peak, held["wait"] * 1e3)
-    finally:
-        if lock is not None:
-            if held["on"]:
-                fcntl.flock(lock, fcntl.LOCK_UN)
-            lock.close()
-            for name in ("_active_batch", "_active_topk_batch",
-                         "_active_scored_batch"):
-                del eng.__dict__[name]
     return out, used
+
+
+class TimedMesh:
+    """A rank mesh whose ``broadcast`` (the serving loop's plan) is timed
+    on the host clock, in ms a call."""
+
+    def __init__(self, mesh):
+        self.mesh, self.ms = mesh, []
+
+    def __getattr__(self, name):
+        return getattr(self.mesh, name)
+
+    def broadcast(self, obj=None):
+        t0 = time.perf_counter()
+        out = self.mesh.broadcast(obj)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def ranked_stretch(cfg: dict, eng, mesh) -> dict:
+    """The ranked ``ServeLoop`` on this rank's full-width engine: shard
+    0's rank leads (its ``time.monotonic`` clock, the queues, the
+    stats), the others follow its plans.  :data:`RANK_STRETCH`'s steps,
+    one arrival batch of the parent's ``more`` file each and a bucket of
+    one request of each kind (phase 3's queries in turn) before each,
+    the rung left to the gauge or pinned.  Every dispatch takes the
+    card's turn for its frozen side (:func:`card_turns`) and copies its
+    answers out before the next fan-out.  The leader returns, for each
+    response, (kind, terms, k, rung, applied docs and doc base at
+    dispatch, digest) for the parent to hold against the brute force;
+    every rank its launches over the stretch, its wait for the card,
+    the plan broadcast's ms a step and its ``check_serve``."""
+    from repro_torch.core import qexec
+    more = np.load(cfg["more"])
+    queries = [tuple(q) for q in cfg["queries"]]
+    pairs = [tuple(p) for p in cfg["pairs"]]
+    config = serve.ServeConfig(max_batch=RANK_BUCKET)
+    ops.reset_launch_counts()
+    with card_turns(eng, cfg.get("turns")) as held:
+        if cfg.get("turns"):
+            real = eng.dispatch
+
+            def dispatch(kind, qs, frozen_only=False, **kw):
+                if frozen_only:           # no fan-out: the frozen side now
+                    held["take"]()
+                res = real(kind, qs, frozen_only=frozen_only, **kw).wait()
+                torch.cuda.synchronize(eng.device)
+                held["release"]()
+                return qexec.Pending((), lambda: res)
+            eng.dispatch = dispatch
+        loop = serve.ServeLoop(eng, config)
+        timed = loop._mesh = TimedMesh(loop._mesh)
+        log_rows, steps, pools = [], [], []
+        if mesh.leads:
+            kinds, r = serve.QUERY_KINDS, 0
+            for i, level in enumerate(RANK_STRETCH):
+                loop.submit_ingest(more[i * BATCH: (i + 1) * BATCH])
+                asked = {}
+                for kind in kinds:
+                    terms = (pairs if kind == "phrase" else queries)[
+                        r % len(queries)]
+                    asked[loop.submit_query(kind, terms, k=SERVE_K)] = (
+                        kind, [int(t) for t in terms])
+                    r += 1
+                applied = eng.doc_base + eng.segments.active.next_docid
+                base = eng.doc_base
+                pools.append(loop.pressure_components()["pool"])
+                loop.force_level = level
+                torch.cuda.synchronize(eng.device)
+                t0 = time.perf_counter()
+                loop.step(force=True)
+                torch.cuda.synchronize(eng.device)
+                steps.append((time.perf_counter() - t0) * 1e3)
+                for resp in loop.take_responses():
+                    kind, terms = asked.pop(resp.qid)
+                    a = (resp.docids if resp.scores is None
+                         else (resp.docids, resp.scores))
+                    log_rows.append(dict(
+                        kind=kind, terms=terms, k=SERVE_K, level=resp.level,
+                        applied=int(applied), base=int(base),
+                        latency_ms=resp.latency_s * 1e3,
+                        digest=answer_digest(a)))
+                if asked:
+                    raise AssertionError(f"step {i}: {len(asked)} requests "
+                                         f"got no response")
+            loop.stop()
+        else:
+            loop.follow()
+        eng.__dict__.pop("dispatch", None)
+        wait_ms = held["wait"] * 1e3
+    counts = ops.launch_counts()
+    rep = invariants.check_serve(loop)
+    st = loop.stats
+    return dict(
+        responses=log_rows, step_ms=steps, pool=pools,
+        launches=counts, card_wait_ms=wait_ms,
+        broadcast_ms=timed.ms, check_serve=[rep.ok, rep.render()],
+        served=st.queries_served, served_by_level=list(st.served_by_level),
+        applied=st.ingest_applied, stats=dataclasses.asdict(st))
+
+
+def ranked_crash(cfg: dict, mesh) -> dict:
+    """At phase 4's depth (2**16-tweet segments, seed 13's stream, pools
+    from each shard's substream) the ranked loop with a journal on the
+    leader, ``validate=True``, every response held against the stream's
+    brute force on the leader: a snapshot mid-stream, then a crash
+    inside a rollover on every rank (the site armed from the same plan)
+    with requests in flight and batches queued; ``recover(mesh=)`` on
+    every rank and ``resume_with``; the stream goes on; the fingerprint
+    equals an uncrashed ranked run's, ``check_serve`` holds on every
+    rank.  Then every ``FaultPlan`` kind on the ranks with
+    ``device="cuda"``."""
+    dev, tmp = mesh.device, cfg["out"]
+    small = vocab = 1 << 16
+    sdocs = make_stream(vocab, 4 * small + small // 2, seed=13)
+    layout, _, fmax = shard_layout(sdocs, vocab, small, mesh.num_shards)
+
+    def engine():
+        return ShardedLifecycleEngine(
+            layout, vocab, small, mesh,
+            max_slices=int(analytical.slices_needed(Z, fmax)) + 1,
+            max_len=engine_max_len(fmax),
+            compaction=CompactionPolicy(fanout=2), validate=True,
+            device=dev)
+
+    batches = [sdocs[s: s + BATCH] for s in range(0, sdocs.shape[0], BATCH)]
+    wal, snap = os.path.join(tmp, "crash.jrnl"), os.path.join(tmp,
+                                                              "crash.snap")
+    loop = serve.ServeLoop(
+        engine(), journal=recovery.IngestJournal(wal) if mesh.leads
+        else None)
+    loop.force_level = serve.DEGRADE_NONE
+    per_seg = small // BATCH
+    arm = 5 * per_seg // 2                  # mid third segment
+    drv = None
+    if mesh.leads:
+        queries, pairs = query_batch(sdocs, vocab, 12, seed=14)
+        bf = BruteForce(sdocs, {t for q in queries for t in q}, vocab)
+        drv = ServeDriver(loop, bf, batches, queries, pairs)
+        loop.snapshot_now(snap)
+        for i in range(arm):
+            drv.submit_ingest()
+            if i % (per_seg // 2) == 0:
+                drv.submit_queries(n=5)
+            drv.step()
+            if i == per_seg + per_seg // 4:
+                loop.snapshot_now(snap)     # a mid-stream snapshot
+        loop.stop()
+    else:
+        loop.follow()
+    crashed = False
+    try:
+        with faults.crash_site("crash_mid_rollover"):
+            if mesh.leads:
+                while drv.feed:
+                    drv.submit_ingest()
+                    drv.submit_ingest()
+                    drv.submit_queries(n=5)
+                    drv.step(force=True)    # requests in flight
+                loop.stop()
+            else:
+                loop.follow()
+    except faults.InjectedCrash:
+        crashed = True
+    if not crashed:
+        raise AssertionError("the injected crash never fired")
+    at_crash = (loop.in_flight_queries, loop.pending_ingest)
+    if not (at_crash[0] and at_crash[1]):
+        raise AssertionError(f"the crash came with {at_crash} requests in "
+                             f"flight and batches queued")
+    acked = mesh.broadcast(loop.journal.next_seq if mesh.leads else None)
+    if mesh.leads:
+        loop.journal.close()
+    torn = loop.engine
+    loop.engine = None
+    del torn
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rec = recovery.recover(snap, wal, mesh=mesh, expect_seq=acked,
+                           device=dev)
+    torch.cuda.synchronize(dev)
+    t_rec = time.perf_counter() - t0
+    loop.resume_with(rec, journal=recovery.IngestJournal(wal)
+                     if mesh.leads else None)
+    if mesh.leads:
+        drv.drain()
+        loop.journal.close()
+        loop.stop()
+    else:
+        loop.follow()
+    _, records = recovery.read_journal(wal)
+    if len(records) != len(batches):
+        raise AssertionError("an acked batch is missing from the journal")
+    oracle = engine()
+    for b in batches:
+        oracle.ingest(b)
+    fa = recovery.engine_fingerprint(loop.engine)
+    fb = recovery.engine_fingerprint(oracle)
+    fa.pop("stats"), fb.pop("stats")     # scored requests bump the stats
+    if fa != fb:
+        raise AssertionError("the recovered, resumed ranked engine differs "
+                             "from the uncrashed one")
+    invariants.check_serve(loop).raise_if_failed()
+    st = loop.stats
+    out = dict(acked=acked, in_flight=at_crash[0], queued=at_crash[1],
+               recover_s=t_rec, ingest_recovered=st.ingest_recovered,
+               queries_aborted=st.queries_aborted,
+               checked=drv.checked if drv else None)
+    del loop, rec, oracle
+    torch.cuda.empty_cache()
+    kinds = {}
+    for kind in faults.KINDS:
+        wd = os.path.join(tmp, "plans", kind)
+        if mesh.leads:
+            os.makedirs(wd)
+        mesh.combine(0)
+        res = faults.run_plan(faults.FaultPlan(kind=kind, seed=3), wd,
+                              mesh=mesh, device=dev)
+        kinds[kind] = ("raised" if res.raised is not None else
+                       f"recovered (crashed={res.crashed})")
+    out["fault_plans"] = kinds
+    return out
 
 
 def rank_small(cfg: dict, mesh) -> dict:
@@ -3064,8 +3342,92 @@ def ranks_full(base: dict, name: str, backend: str, device: str,
             "shard", "device", "ingest_docs_per_s", "rollover_s",
             "recycled_docs_per_s", "query_ms", "query_wait_ms", "launches",
             "peak_bytes", "card_used_bytes", "snapshot_s", "intersect_calls",
-            "intersect_max_abs_err", "replay_s")}
+            "intersect_max_abs_err", "replay_s", "stretch", "stretch_s",
+            "crash")}
             for r in ranks])
+
+
+def check_stretch(name: str, world: dict, bf) -> dict:
+    """The ranked stretch and crash of one world (:func:`ranks_full`'s
+    summary): every response's digest equal to :func:`rung_answer` on
+    the brute force over the stream and the stretch's batches; every
+    rank's ``check_serve`` ok, ``bulk_append`` launched once a rank per
+    applied batch and the three query kernels at least once a rank; the
+    crash recovered and every fault plan run on every rank.  Logs the
+    stretch's times; returns them."""
+    ranks = world["ranks"]
+    lead = ranks[0]["stretch"]
+    cfg = serve.ServeConfig(max_batch=RANK_BUCKET)
+    for i, r in enumerate(lead["responses"]):
+        ids, scs = rung_answer(bf, r["kind"], r["terms"], r["k"], r["level"],
+                               r["applied"], r["base"], cfg)
+        if answer_digest(ids if scs is None else (ids, scs)) != r["digest"]:
+            raise AssertionError(
+                f"ranked stretch response {i} ({r['kind']} {r['terms']} at "
+                f"rung {r['level']}) differs from the brute force")
+    if len(lead["responses"]) != len(RANK_STRETCH) * len(serve.QUERY_KINDS):
+        raise AssertionError(f"{len(lead['responses'])} responses")
+    for rk in ranks:
+        st, n = rk["stretch"], len(RANK_STRETCH)
+        if not st["check_serve"][0]:
+            raise AssertionError(f"shard {rk['shard']}: check_serve failed: "
+                                 f"{st['check_serve'][1]}")
+        if st["stats"] != lead["stats"]:
+            raise AssertionError(f"shard {rk['shard']}'s stats are not the "
+                                 f"leader's")
+        if not st["applied"] == st["launches"]["bulk_append"] == n:
+            raise AssertionError(
+                f"shard {rk['shard']}: bulk_append launched "
+                f"{st['launches']['bulk_append']} times for {st['applied']} "
+                f"applied batches of {n}")
+        for k in ("segment_intersect_mask_batched", "intersect_mask",
+                  "scored_intersect_batched"):
+            if st["launches"][k] <= 0:
+                raise AssertionError(f"shard {rk['shard']} never launched "
+                                     f"{k} in the stretch")
+        if set(rk["crash"]["fault_plans"]) != set(faults.KINDS):
+            raise AssertionError(f"shard {rk['shard']}: fault plans "
+                                 f"{rk['crash']['fault_plans']}")
+    steps = lead["step_ms"]
+    lat = [r["latency_ms"] for r in lead["responses"]]
+    crash = ranks[0]["crash"]
+    out = dict(
+        served=len(lat), served_per_s=len(lat) / (sum(steps) / 1e3),
+        step_ms=steps, step_p50_ms=float(np.median(steps)),
+        step_max_ms=max(steps), latency_p50_ms=float(np.percentile(lat, 50)),
+        latency_p99_ms=float(np.percentile(lat, 99)),
+        levels=[r["level"] for r in lead["responses"]], pool=lead["pool"],
+        card_wait_ms=[rk["stretch"]["card_wait_ms"] for rk in ranks],
+        broadcast_ms_per_step=[
+            sum(rk["stretch"]["broadcast_ms"]) / len(steps) for rk in ranks],
+        stretch_s=[rk["stretch_s"] for rk in ranks],
+        recover_s=[rk["crash"]["recover_s"] for rk in ranks],
+        crash_s=[rk["crash"]["seconds"] for rk in ranks],
+        crash=crash, launches=[rk["stretch"]["launches"] for rk in ranks])
+    log(f"phase 8c ({name}) ranked serving: {len(steps)} steps (rungs "
+        f"{out['levels']}, pool gauge {lead['pool']}), {out['served']} "
+        f"responses equal to the brute force at their rungs, "
+        f"{out['served_per_s']:.2f} served/s; step ms p50 "
+        f"{out['step_p50_ms']:.1f}, max {out['step_max_ms']:.1f} (each "
+        + ", ".join(f"{x:.1f}" for x in steps) + f"); request latency "
+        f"p50 {out['latency_p50_ms']:.1f} ms, p99 "
+        f"{out['latency_p99_ms']:.1f} ms on the leader's clock; each "
+        f"rank's wait for the card (ms) "
+        + ", ".join(f"{x:.1f}" for x in out["card_wait_ms"])
+        + "; plan broadcast host ms a step by rank "
+        + ", ".join(f"{x:.2f}" for x in out["broadcast_ms_per_step"])
+        + "; check_serve ok on every rank, launches asserted")
+    log(f"phase 8c ({name}) ranked crash at phase 4's depth: "
+        f"{crash['in_flight']} requests in flight, {crash['queued']} "
+        f"batches queued, {crash['acked']} acked; recover(mesh=) "
+        + ", ".join(f"{x:.2f}" for x in out["recover_s"])
+        + f" s by rank; resumed: {crash['ingest_recovered']} batches "
+        f"recovered, {crash['queries_aborted']} requests aborted, "
+        f"{crash['checked']} responses equal to the brute force, "
+        f"fingerprint equal to the uncrashed ranked run; fault plans on "
+        f"the ranks {json.dumps(crash['fault_plans'])}; crash and plans "
+        + ", ".join(f"{x:.1f}" for x in out["crash_s"]) + " s by rank")
+    return out
 
 
 def rank_oracle(docs, vocab: int, total: int, n: int = RANK_QUERIES):
@@ -3104,6 +3466,16 @@ def phase_ranks(docs, vocab: int, seg_docs: int, extra: int,
                 queries=[list(q) for q in queries],
                 pairs=[list(p) for p in pairs])
     want_d = answer_digests(want)
+    more = make_stream(vocab, len(RANK_STRETCH) * BATCH, seed=17)
+    stretch_bf = []
+
+    def beside_all():
+        if beside is not None:
+            beside()
+        stream = np.concatenate([docs[: seg_docs + extra], more])
+        stretch_bf.append(BruteForce(
+            stream, {t for q in list(queries) + list(pairs) for t in q},
+            vocab))
     out = {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3120,9 +3492,13 @@ def phase_ranks(docs, vocab: int, seg_docs: int, extra: int,
         tmp = stack.enter_context(tempfile.TemporaryDirectory())
         base["docs"] = os.path.join(tmp, "docs.npy")
         np.save(base["docs"], docs[: seg_docs + extra])
+        base["more"] = os.path.join(tmp, "more.npy")
+        np.save(base["more"], more)
         for name, backend, device in worlds:
             out[name] = ranks_full(base, name, backend, device, want_d,
-                                   beside if name == "gloo" else None)
+                                   beside_all if name == "gloo" else None)
+            out[name]["serving"] = check_stretch(name, out[name],
+                                                 stretch_bf[0])
         (small,) = end_world(small_w)
     out["nccl4_ran"] = "nccl4" in out
     if not out["nccl4_ran"]:

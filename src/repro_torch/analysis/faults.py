@@ -44,8 +44,17 @@ compaction funnel through — ``slicepool.release_slices`` (which
 module global of ``segments``) — so a patch on the module bites, raising
 :class:`InjectedCrash` mid-operation; the harness then abandons the torn
 in-memory engine exactly as a dead process would.  A plan run with
-``mesh=`` (:func:`~repro_torch.core.sharded_index.make_doc_mesh`) drives
-a ``ShardedLifecycleEngine`` on the mesh's shards.
+``mesh=`` drives a ``ShardedLifecycleEngine`` on the mesh's shards:
+:func:`~repro_torch.core.sharded_index.make_doc_mesh` stacks them in one
+process; on :func:`~repro_torch.core.sharded_index.make_rank_mesh` every
+rank calls :func:`run_plan` with the same plan and workdir.  Shard 0's
+rank alone then removes the files, writes the journal and corrupts the
+durable state, each followed by a barrier; every rank builds its shard's
+engine, snapshots, arms the crash site at the same batch (both sites are
+reached by every rank in the same operation, before any other
+collective), recovers, takes the fingerprint and runs
+:func:`query_results`, and a corruption plan's ``CorruptSnapshotError``
+is raised on every rank.
 """
 from __future__ import annotations
 
@@ -289,13 +298,23 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
     contract.  Returns the :class:`FaultResult` on success; raises
     ``AssertionError`` (with the plan repr) on any contract violation —
     a recovered engine differing from the oracle, a corruption plan
-    recovering silently, or a crash plan failing to recover."""
+    recovering silently, or a crash plan failing to recover.  On a rank
+    mesh every rank calls it alike and gets the same result."""
+    leads = mesh is None or mesh.leads
+
+    def barrier():
+        # shard 0's rank's file work is done before any rank reads
+        if mesh is not None:
+            mesh.combine(0)
+
     batches = make_batches(plan)
     snap = os.path.join(workdir, "snap.bin")
     jrnl = os.path.join(workdir, "journal.bin")
-    for p in (snap, jrnl):
-        if os.path.exists(p):
-            os.remove(p)
+    if leads:
+        for p in (snap, jrnl):
+            if os.path.exists(p):
+                os.remove(p)
+    barrier()
 
     eng = make_engine(plan, mesh, device=device)
     # bootstrap snapshot at seq 0 (production takes one at startup), so
@@ -305,9 +324,11 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
     site = _CRASH_SITES.get(plan.kind)
     acked = 0
     crashed = False
-    with rec.IngestJournal(jrnl) as journal:
+    with (rec.IngestJournal(jrnl) if leads
+          else contextlib.nullcontext()) as journal:
         for i, docs in enumerate(batches):
-            journal.append(docs)   # WAL: append (=ack) THEN apply
+            if leads:
+                journal.append(docs)   # WAL: append (=ack) THEN apply
             acked += 1
             try:
                 if site is not None and i >= plan.crash_at:
@@ -326,15 +347,16 @@ def run_plan(plan: FaultPlan, workdir: str, *, mesh=None,
     del eng
 
     rng = np.random.default_rng(plan.seed + 1)
-    if plan.kind == "truncate_archive":
+    if leads and plan.kind == "truncate_archive":
         truncate_file(snap, keep_fraction=float(rng.uniform(0.05, 0.95)))
-    elif plan.kind == "flip_leaf_byte":
+    elif leads and plan.kind == "flip_leaf_byte":
         flip_payload_byte(snap, rng)
-    elif plan.kind == "drop_journal_tail":
+    elif leads and plan.kind == "drop_journal_tail":
         kept = drop_journal_records(jrnl, 1)
         assert kept < acked, (
             f"{plan!r}: dropping a record left {kept} >= {acked} acked "
             f"— plan too short to lose anything")
+    barrier()
 
     raised: Optional[str] = None
     fingerprint_equal = False

@@ -663,7 +663,14 @@ def check_serve(loop) -> Report:
     aborted / still queued / in flight, per-level service counts sum to
     the served total, every rejection carried a positive retry-after,
     and every acked ingest batch is exactly one of applied /
-    finally-shed / replay-recovered / still queued."""
+    finally-shed / replay-recovered / still queued.
+
+    On a rank mesh every rank checks its own loop: a follower's stats
+    and queue depths are the leader's as of the leader's last plan, so
+    after the leader's ``stop()`` every rank checks the leader's
+    accounting.  The failure flag is then maxed over the ranks, as in
+    :func:`check_engine`: a collective every rank calls, and the same
+    verdict on every rank."""
     rep = Report("check_serve")
     s = loop.stats
     accounted = (s.queries_rejected + s.queries_served
@@ -693,6 +700,9 @@ def check_serve(loop) -> Report:
                 f"shed {s.ingest_shed} + recovered {s.ingest_recovered} "
                 f"+ queued {loop.pending_ingest} — an acked batch "
                 "vanished without a verdict")
+    mesh = getattr(loop.engine.segments, "mesh", None)
+    if mesh is not None and mesh.combine(not rep.ok, "max") and rep.ok:
+        rep.add("ranks", "another rank's loop failed its checks")
     rep.stats["queries_served"] = s.queries_served
     rep.stats["ingest_applied"] = s.ingest_applied
     return rep

@@ -316,13 +316,15 @@ class _LifecycleBase:
                 self.validate_invariants()
         return True
 
-    def _utilization(self) -> float:
+    def pool_utilization(self) -> float:
+        """The worst pool's live-slice utilization of the active segment
+        (the gauge that admission and the serving loop read)."""
         return slicepool.pool_utilization(self.layout,
                                           self.segments.active.state)
 
     def _admit(self) -> bool:
         adm = self.admission
-        util = self._utilization()
+        util = self.pool_utilization()
         if (util >= adm.rollover_at
                 and self.segments.active.next_docid
                 >= max(1, adm.min_segment_docs)):
@@ -335,7 +337,7 @@ class _LifecycleBase:
             self._refresh_memory_stats()
             if self.validate:
                 self.validate_invariants()
-            util = self._utilization()
+            util = self.pool_utilization()
         return util < adm.shed_at
 
     def _refresh_memory_stats(self) -> None:
@@ -897,7 +899,9 @@ class ShardedLifecycleEngine(_LifecycleBase):
             layout, mesh, max_slices, max_len, max_query_len,
             use_kernel=use_kernel)
 
-    def _utilization(self) -> float:
+    def pool_utilization(self) -> float:
+        """The worst pool of the worst shard; on a rank mesh a max over
+        the ranks, so a collective every rank calls."""
         return self.segments.active.pool_utilization()
 
     def memory_slots_used(self) -> int:

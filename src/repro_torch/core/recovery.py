@@ -49,7 +49,11 @@ archive (the bytes of the stacked engine's archive of the same stream),
 :func:`restore` reads the archive on every rank and keeps the rank's
 own shard's rows, :func:`recover` replays the same journal on every
 rank, and :func:`engine_fingerprint` digests the gathered state, equal
-to the stacked engine's.
+to the stacked engine's.  An :class:`IngestJournal` is written by shard
+0's rank alone (the serving loop's leader, or the fault harness's), and
+every rank reads it in :func:`recover` once the writer is done: a
+barrier the loop or the harness owns (a crash ends every rank's step in
+the same operation; the harness's writes are each followed by one).
 """
 from __future__ import annotations
 
@@ -562,7 +566,10 @@ def recover(snapshot_path: str, journal_path: Optional[str] = None, *,
     ``expect_seq`` is the durable watermark (the number of batches
     acknowledged upstream): if snapshot + journal cover fewer,
     :class:`CorruptSnapshotError` is raised.  ``on_replay(seq, docs,
-    admitted)`` is called after each replayed batch."""
+    admitted)`` is called after each replayed batch.  On a rank mesh
+    every rank calls it with the same paths and ``expect_seq`` and
+    replays the same records, so a damaged archive or journal raises on
+    every rank."""
     meta, arrays = read_archive(snapshot_path)
     eng = _build_engine(meta, arrays, device=device, mesh=mesh,
                         **overrides)

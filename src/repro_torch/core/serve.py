@@ -50,6 +50,26 @@ counted, never retried into the same engine, because a shed-then-retry
 would mutate state in a way a single-pass journal replay
 (:func:`~repro_torch.core.recovery.recover`) could not reproduce.
 
+**On ranks** (an engine on
+:func:`~repro_torch.core.sharded_index.make_rank_mesh`, one shard a
+process) every rank builds a loop over its shard's engine, and every
+rank must make the same engine calls in the same order.  Shard 0's rank
+is the *leader*: it alone holds the queues, the clock, the journal and
+the stats, and clients submit there alone (``submit_*`` on another rank
+raises).  Each :meth:`ServeLoop.step` on the leader settles everything
+read from the clock or the gauge -- force, full or due, the rung, the
+groups with their specs and terms, the ingest ``(seq, docs)`` -- into one
+plan, broadcast once (``mesh.broadcast``); the other ranks, *followers*,
+run :meth:`ServeLoop.follow`, which makes each plan's ``dispatch``,
+``ingest`` and ``wait`` calls in the plan's order, and takes the
+leader's snapshot and stop plans.  A follower's clock is never read; its
+stats mirror the leader's from the plans.  The pool gauge is the
+engine's :meth:`pool_utilization` (a max over the ranks), which every
+rank reads in the same collective at construction, after each step that
+applied a batch and in :meth:`ServeLoop.resume_with`, and which
+``submit_ingest`` and the ladder read from there.  On one device and on
+the stacked mesh the broadcast is the identity: the same code path.
+
 The reference's ``stable_shapes`` ratchet is left out: eager torch
 never recompiles for a new gather shape.  Not to be confused with
 ``repro_torch.launch.serve``, the paged-KV *model*-serving loop.
@@ -62,7 +82,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.core import qexec, slicepool
+from repro_torch.core import qexec
 
 # Degradation ladder: every query is served at exactly one level, and
 # the response carries it; each rung is exact against its oracle.
@@ -168,6 +188,23 @@ class ServeStats:
     latency_ewma_s: float = 0.0
 
 
+@dataclasses.dataclass
+class Plan:
+    """What the leader decided, as every rank runs it: ``op`` is
+    ``"step"`` (``groups`` of ``(spec, terms of each query)`` to
+    dispatch in order, then ``ingest``'s ``(seq, docs)`` if any),
+    ``"snapshot"`` (to ``path`` at ``seq``), ``"resume"`` or ``"stop"``;
+    ``report`` is the leader's stats and ``(pending queries, pending
+    ingest, in flight, applied seq)`` as it broadcast the plan."""
+    op: str
+    groups: List[Tuple[tuple, List[Tuple[int, ...]]]] = \
+        dataclasses.field(default_factory=list)
+    ingest: Optional[Tuple[int, np.ndarray]] = None
+    path: Optional[str] = None
+    seq: int = 0
+    report: Optional[tuple] = None
+
+
 class ServeLoop:
     """Single-threaded cooperative serving loop: callers ``submit_*``,
     something drives :meth:`step` (a thread, an event loop, a bench's
@@ -180,12 +217,24 @@ class ServeLoop:
     seq is returned, so every acknowledged batch survives a crash and
     :func:`~repro_torch.core.recovery.recover` + :meth:`resume_with`
     restores a bit-identical index.
+
+    On a rank mesh the loop of shard 0's rank leads (:attr:`leads`):
+    it alone takes submissions and a journal, and drives :meth:`step`,
+    :meth:`snapshot_now` and finally :meth:`stop`; every other rank calls
+    :meth:`follow` until the leader stops.  Constructing the loop and
+    :meth:`resume_with` are collectives every rank makes.
     """
 
     def __init__(self, engine, config: Optional[ServeConfig] = None, *,
                  journal=None, clock: Callable[[], float] = time.monotonic):
         self.engine = engine
         self.config = config if config is not None else ServeConfig()
+        self._mesh = getattr(engine.segments, "mesh", None)
+        self.leads = self._mesh is None or self._mesh.leads
+        if journal is not None and not self.leads:
+            raise ValueError("the journal is the leader's (shard 0's "
+                             "rank): followers get their batches from its "
+                             "plans")
         self.journal = journal
         self.clock = clock
         self.stats = ServeStats()
@@ -198,19 +247,23 @@ class ServeLoop:
         self._next_seq = journal.next_seq if journal is not None else 0
         self._applied_seq = self._next_seq  # batches handed to engine
         self._n_in_flight = 0
+        # a follower's view of the leader's queues: (queued queries,
+        # queued batches, queries in flight) at its last plan
+        self._seen = None if self.leads else (0, 0, 0)
+        self.refresh_pressure()
 
     # -- introspection ----------------------------------------------------
     @property
     def pending_queries(self) -> int:
-        return len(self._query_q)
+        return len(self._query_q) if self._seen is None else self._seen[0]
 
     @property
     def in_flight_queries(self) -> int:
-        return self._n_in_flight
+        return self._n_in_flight if self._seen is None else self._seen[2]
 
     @property
     def pending_ingest(self) -> int:
-        return len(self._ingest_q)
+        return len(self._ingest_q) if self._seen is None else self._seen[1]
 
     @property
     def applied_seq(self) -> int:
@@ -218,14 +271,20 @@ class ServeLoop:
         or finally shed) — the ``seq`` a snapshot taken now must carry."""
         return self._applied_seq
 
+    def refresh_pressure(self) -> None:
+        """Re-read the engine's pool utilization for the gauge and the
+        ingest check (on ranks a collective every rank makes).  The loop
+        calls it itself wherever it changes the engine; a caller that
+        changes the engine outside :meth:`step` calls it after."""
+        self._pool_util = self.engine.pool_utilization()
+
     def pressure_components(self) -> Dict[str, float]:
         """The overload gauge's three inputs, each normalised so 1.0
         means 'at the limit': query queue depth, worst-pool live slice
         utilization, recent latency against the deadline budget."""
         return {
             "queue": len(self._query_q) / self.config.query_queue_cap,
-            "pool": slicepool.pool_utilization(
-                self.engine.layout, self.engine.segments.active.state),
+            "pool": self._pool_util,
             "latency": self.stats.latency_ewma_s / self.config.deadline_s,
         }
 
@@ -246,6 +305,12 @@ class ServeLoop:
         return level
 
     # -- submission (client side) ----------------------------------------
+    def _lead(self, what: str) -> None:
+        if not self.leads:
+            raise RuntimeError(
+                f"{what} runs on the leader (shard 0's rank); this rank "
+                f"follows the leader's plans with follow()")
+
     def _retry_after(self, depth: int) -> float:
         """Backpressure hint: roughly the time to drain the current
         queue at the recently observed service rate (latency EWMA per
@@ -273,6 +338,7 @@ class ServeLoop:
         the queue is full.  ``k`` is the top-k size (``topk`` /
         ``scored``) and the degraded-mode result cap for the unlimited
         kinds; ``deadline_s`` is this query's budget from now."""
+        self._lead("submit_query")
         if kind not in QUERY_KINDS:
             raise ValueError(f"unknown query kind {kind!r}; "
                              f"one of {QUERY_KINDS}")
@@ -298,13 +364,12 @@ class ServeLoop:
         is already critically utilized (``ingest_reject_util``) — the
         un-acked backpressure that keeps the engine's deterministic shed
         a last resort."""
+        self._lead("submit_ingest")
         self.stats.ingest_submitted += 1
         if len(self._ingest_q) >= self.config.ingest_queue_cap:
             return self._reject("ingest_queue_full", len(self._ingest_q),
                                 is_query=False)
-        util = slicepool.pool_utilization(
-            self.engine.layout, self.engine.segments.active.state)
-        if util >= self.config.ingest_reject_util:
+        if self._pool_util >= self.config.ingest_reject_util:
             return self._reject("pool_pressure", len(self._ingest_q),
                                 is_query=False)
         docs = np.asarray(docs)
@@ -322,18 +387,40 @@ class ServeLoop:
         dispatch only), dispatch one ingest batch into the gap, then
         sync the query results.  Returns the number of responses
         produced.  ``force=True`` flushes a partial batch regardless of
-        the timer (drain/shutdown path)."""
+        the timer (drain/shutdown path).  On ranks the leader's step is
+        one plan that every follower runs."""
+        self._lead("step")
         now = self.clock()
-        in_flight = self._flush_queries(now, force)
-        self._dispatch_ingest()        # overlaps the waits below
-        produced = 0
-        for pend, rqs, level in in_flight:
-            produced += self._collect(pend, rqs, level)
-        return produced
+        level, groups = self._flush_queries(now, force)
+        plan = self._broadcast(Plan(
+            "step", groups=[(spec, [rq.terms for rq in rqs])
+                            for spec, rqs in groups],
+            ingest=self._ingest_q[0] if self._ingest_q else None))
+        return self._run(plan, [(rqs, level) for _, rqs in groups])
+
+    def follow(self) -> None:
+        """A follower's loop: run each plan the leader broadcasts, with
+        the leader's engine calls in the leader's order, until the
+        leader's :meth:`stop`."""
+        if self.leads:
+            raise RuntimeError("the leader drives step(); follow() runs on "
+                               "the other ranks")
+        while True:
+            plan = self._broadcast()
+            self._run(plan)
+            if plan.op == "stop":
+                return
+
+    def stop(self) -> None:
+        """Release the followers from :meth:`follow` (their stats then
+        equal the leader's); nothing on one process."""
+        self._lead("stop")
+        self._broadcast(Plan("stop"))
 
     def drain(self, max_steps: int = 100_000) -> List[QueryResponse]:
         """Step (forced) until both queues are empty, then return every
         accumulated response."""
+        self._lead("drain")
         steps = 0
         while self._query_q or self._ingest_q:
             self.step(force=True)
@@ -352,9 +439,11 @@ class ServeLoop:
         """Durable snapshot at the current applied watermark.  Call
         between steps: the seq recorded is :attr:`applied_seq`, so a
         later ``recover(snapshot, journal)`` replays exactly the acked
-        batches this engine had not yet absorbed."""
-        from repro_torch.core import recovery as rec
-        rec.snapshot(self.engine, path, seq=self._applied_seq)
+        batches this engine had not yet absorbed.  On ranks a plan every
+        follower takes."""
+        self._lead("snapshot_now")
+        self._run(self._broadcast(Plan("snapshot", path=path,
+                                       seq=self._applied_seq)))
 
     def resume_with(self, engine, journal=None) -> None:
         """Reattach after crash recovery: swap in the engine returned by
@@ -367,7 +456,11 @@ class ServeLoop:
         Queued queries and accumulated responses survive untouched;
         queries that were IN FLIGHT when the crash escaped :meth:`step`
         lost their device work and are counted ``queries_aborted``
-        (queries are never acked, so this loses no promise)."""
+        (queries are never acked, so this loses no promise).  On ranks
+        every rank calls it with its own recovered engine (a journal on
+        the leader alone), and the followers take the leader's stats."""
+        if journal is not None and not self.leads:
+            raise ValueError("the journal is the leader's (shard 0's rank)")
         self.engine = engine
         if journal is not None:
             self.journal = journal
@@ -379,16 +472,58 @@ class ServeLoop:
         self._applied_seq = self._next_seq
         self.stats.queries_aborted += self._n_in_flight
         self._n_in_flight = 0
+        self._broadcast(Plan("resume"))
+        self.refresh_pressure()
 
     # -- internals --------------------------------------------------------
+    def _broadcast(self, plan: Optional[Plan] = None) -> Plan:
+        """The leader's ``plan`` with its report, on every rank (the
+        identity on one process); a follower mirrors the report."""
+        if self.leads:
+            plan.report = (self.stats, (len(self._query_q),
+                                        len(self._ingest_q),
+                                        self._n_in_flight,
+                                        self._applied_seq))
+        if self._mesh is not None:
+            plan = self._mesh.broadcast(plan)
+        if not self.leads:
+            self.stats, (*seen, self._applied_seq) = plan.report
+            self._seen = tuple(seen)
+        return plan
+
+    def _run(self, plan: Plan, waiting=None) -> int:
+        """Make ``plan``'s engine calls; the leader collects the
+        responses of ``waiting``'s ``(requests, level)`` per group, a
+        follower only waits.  Returns the responses produced."""
+        if plan.op == "snapshot":
+            from repro_torch.core import recovery as rec
+            rec.snapshot(self.engine, plan.path, seq=plan.seq)
+        if plan.op != "step":
+            return 0
+        pending = [self._dispatch_group(spec, terms)
+                   for spec, terms in plan.groups]
+        if plan.ingest is not None:
+            self._dispatch_ingest(*plan.ingest)  # overlaps the waits below
+        produced = 0
+        for i, pend in enumerate(pending):
+            if waiting is None:
+                pend.wait()
+            else:
+                produced += self._collect(pend, *waiting[i])
+        if plan.ingest is not None:
+            self.refresh_pressure()
+        return produced
+
     def _flush_queries(self, now: float, force: bool):
+        """The rung and the coalesced ``(spec, requests)`` groups of the
+        due query batch (none when nothing is due)."""
         cfg = self.config
         if not self._query_q:
-            return []
+            return None, []
         full = len(self._query_q) >= cfg.max_batch
         due = (now - self._query_q[0].submitted_s) >= cfg.batch_wait_s
         if not (full or due or force):
-            return []
+            return None, []
         if full:
             self.stats.flushes_full += 1
         else:
@@ -399,12 +534,9 @@ class ServeLoop:
         groups: Dict[tuple, List[QueryRequest]] = {}
         for rq in take:
             groups.setdefault(self._plan(rq, level), []).append(rq)
-        out = []
-        for spec, rqs in groups.items():
-            out.append((self._dispatch_group(spec, rqs), rqs, level))
         self.stats.batches_dispatched += len(groups)
         self._n_in_flight += len(take)
-        return out
+        return level, list(groups.items())
 
     def _plan(self, rq: QueryRequest, level: int) -> tuple:
         """Execution class for one request at one ladder rung:
@@ -426,23 +558,21 @@ class ServeLoop:
         return (rq.kind, k, frozen_only)   # disjunctive/phrase: capped
 
     def _dispatch_group(self, spec: tuple,
-                        rqs: List[QueryRequest]) -> qexec.Pending:
+                        queries: List[Tuple[int, ...]]) -> qexec.Pending:
         mode, kk, frozen_only = spec
-        queries = [rq.terms for rq in rqs]
         if mode in ("topk", "scored", "scored_full"):
             return self.engine.dispatch(mode, queries, k=kk,
                                         frozen_only=frozen_only)
         return self.engine.dispatch(mode, queries, limit=kk,
                                     frozen_only=frozen_only)
 
-    def _dispatch_ingest(self) -> None:
-        if not self._ingest_q:
-            return
+    def _dispatch_ingest(self, seq: int, docs: np.ndarray) -> None:
         # peek, ingest, THEN pop: if a crash (fault injection, real bug)
         # escapes mid-ingest the batch stays queued, so resume_with can
         # account for it as replay-recovered instead of losing it.
-        seq, docs = self._ingest_q[0]
         ok = self.engine.ingest(docs)
+        if not self.leads:
+            return
         self._ingest_q.pop(0)
         self._applied_seq = seq + 1
         if ok:
@@ -488,5 +618,5 @@ class ServeLoop:
 
 __all__ = ["DEGRADE_NONE", "DEGRADE_EARLY_EXIT", "DEGRADE_REDUCED_K",
            "DEGRADE_FROZEN_ONLY", "LEVEL_NAMES", "QUERY_KINDS",
-           "QueryRequest", "QueryResponse", "Rejected", "ServeConfig",
+           "Plan", "QueryRequest", "QueryResponse", "Rejected", "ServeConfig",
            "ServeLoop", "ServeStats"]

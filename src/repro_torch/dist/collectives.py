@@ -34,8 +34,9 @@ rank holds one shard (its id row-major over the mesh dims the logical
 ``docs`` axis maps to) on its own device, and the shard-axis reductions
 the stacked :class:`Mesh` does on its leading axis become the
 process-group collectives above.  Both meshes answer the same small
-interface (``local_shards``, ``stack``, ``collect``, ``gather``,
-``sum``, ``combine``), so the index runs one code path over either.
+interface (``local_shards``, ``leads``, ``stack``, ``collect``,
+``gather``, ``sum``, ``combine``, ``broadcast``), so the index and the
+serving loop run one code path over either.
 
 **Worlds.**  :func:`fake_world` is a world of ``n`` ranks that moves no
 data (``torch.distributed``'s fake backend): the counterpart of the
@@ -90,10 +91,20 @@ class Mesh:
         """:func:`psum` of the local stack ``x[L, ...]``."""
         return psum(x)
 
+    @property
+    def leads(self) -> bool:
+        """Whether this process holds shard 0 (here: always)."""
+        return True
+
     def combine(self, value, op: str = "sum"):
         """A host number already reduced over the local shards, reduced
         over every process (here: the value itself)."""
         return value
+
+    def broadcast(self, obj=None):
+        """Shard 0's process's host object on every process (here: the
+        object itself)."""
+        return obj
 
 
 def all_gather(x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
@@ -376,6 +387,12 @@ class RankMesh:
     def local_shards(self) -> Tuple[int, ...]:
         return (self.shard,)
 
+    @property
+    def leads(self) -> bool:
+        """Whether this rank holds shard 0 (the rank that decides for
+        the ``docs`` group, as :meth:`broadcast`'s source)."""
+        return self.shard == 0
+
     def stack(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x[1, ...]`` as ``[S, ...]`` in shard order."""
         return mesh_all_gather(x, self.axis, axis=0, rules=self.rules)
@@ -420,3 +437,38 @@ class RankMesh:
         fn = mesh_psum if op == "sum" else mesh_pmax
         out = fn(t, self.axis, rules=self.rules)[0].item()
         return float(out) if is_float else int(out)
+
+    def broadcast(self, obj=None):
+        """Shard 0's rank's host object (``obj`` there, which gets it
+        back; the others pass nothing) on every rank of the ``docs``
+        group: pickled to bytes, its length and then its bytes broadcast
+        from coordinate 0 of each mesh dim ``docs`` maps to in turn, so
+        every rank's copy comes from shard 0's.  Host tensors cross gloo
+        as they are and NCCL through the current card (``_staged``).
+        Every rank of the group must call it, in the same order as its
+        other collectives."""
+        import pickle
+        if self.leads:
+            data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                    dtype=torch.uint8)
+        else:
+            data = torch.empty(0, dtype=torch.uint8)
+        for mesh, dim in _groups(self.rules, self.rules.axes(self.axis)):
+            group = mesh.get_group(dim)
+            at = [int(c) for c in mesh.get_coordinate()]
+            at[dim] = 0
+            src = int(mesh.mesh[tuple(at)])
+            n = _broadcast(torch.tensor([data.numel()]), src, group)
+            if data.numel() != int(n[0]):
+                data = torch.empty(int(n[0]), dtype=torch.uint8)
+            data = _broadcast(data, src, group)
+        return obj if self.leads else pickle.loads(data.numpy().tobytes())
+
+
+def _broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, in place
+    where it lies (staged for the group's backend)."""
+    import torch.distributed as dist
+    t, home = _staged(x, [dist.get_backend(group)])
+    dist.broadcast(t, src, group=group)
+    return t if home is None else t.to(home)
