@@ -70,6 +70,25 @@ Phases, in order (any failure raises and exits non-zero):
      idle share and top ops, peak memory, and the kernel (warm, flushed,
      profiler) against its bound, its plain version and
      ``F.embedding_bag`` at each of the ten calls the cells make;
+  6r. the recsys steps on ranks, each table sharded by rows: the windowed
+     bag kernels on synthetic bags at 2 and 4 windows (each window
+     bit-equal to the windowed in-order sum, the windows summing to the
+     whole bags, the backward's blocks concatenating to the whole
+     gradient bit for bit); then four gloo rank processes on card 0 on a
+     (1, 4) ``("data", "model")`` mesh, each with its own block of rows
+     made from the seed's stream: (a) DLRM-MLPerf's bf16 table over all
+     four (rows over ``("data", "model")``, ``rules_for``'s layout past
+     5e7 rows), phase 6's batch through ``make_recsys_forward``: the
+     bags bit-equal to phase 6's single-card bags, the logits within
+     1e-5; (b) DCN-v2 as published, two AdamW steps at B 16,384 (a
+     quarter of train_batch: four ranks carry the batch's activations on
+     one card): losses, the table's blocks and moments and every
+     replicated leaf within 1e-5 of the same steps on one card.  Each
+     rank logs step ms, the bag reduce's bytes and host ms and
+     ``max_memory_allocated``, asserts its launches, replays its windowed
+     calls against the windowed plain version and times them in its
+     turn; a guard on the functional collectives fails any ``DTensor``
+     collective of a CUDA tensor over gloo (with a positive control);
   7. search serving through the port's ``ServeLoop``: (a) phase 3's
      full-width engine behind the reference's ``ServeConfig`` and an
      ingest journal takes 2**20 more tweets in 4096-tweet batches
@@ -227,7 +246,8 @@ and 6, ``--serve-only`` phases 1, 3 and 7, ``--sharded-only`` phases 1
 and 8 (with a brute force of its own), ``--lm-only`` phases 1 and 9,
 ``--train-only`` phases 1 and 10, ``--gnn-only`` phases 1 and 11,
 ``--ranks-only`` phases 1 and 8c (with a brute force of its own; short
-rehearsals);
+rehearsals), ``--recsys-ranks-only`` phases 1 and 6r (with a DLRM
+reference of its own);
 ``--intersect-calls PATH`` phases 1 and 4,
 saving the sequential route's ``intersect_mask`` inputs to ``PATH`` for
 ``launch/time_intersect_mask.py --calls``; ``--segment-calls PATH``
@@ -284,6 +304,7 @@ from repro_torch.core.segments import CompactionPolicy  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
 from repro_torch.dist.collectives import process_world  # noqa: E402
 from repro_torch.kernels import _cuda, ops, ref  # noqa: E402
+from repro_torch.kernels import embedding_bag as keb  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_kernel  # noqa: E402
 from repro_torch.kernels import segment_intersect as si  # noqa: E402
 from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
@@ -2722,18 +2743,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_world(cfg: dict, n: int, tmp: str) -> dict:
+def start_world(cfg: dict, n: int, tmp: str,
+                timeout: float = RANK_TIMEOUT) -> dict:
     """Start ``n`` processes of this script (``--rank-child``) in one
     world on ``cfg['backend']``, writing into ``tmp``; :func:`end_world`
-    waits for them."""
+    waits for them, at most ``timeout`` s (each collective too)."""
     port = _free_port()
     procs, logs = [], []
     # the host's cores split between the ranks
     env = dict(os.environ, OMP_NUM_THREADS=str(max(
         1, (os.cpu_count() or n) // n)))
     for r in range(n):
-        c = dict(cfg, rank=r, world=n, port=port, out=tmp,
-                 timeout=RANK_TIMEOUT)
+        c = dict(cfg, rank=r, world=n, port=port, out=tmp, timeout=timeout)
         logs.append((open(os.path.join(tmp, f"rank{r}.out"), "w+"),
                      open(os.path.join(tmp, f"rank{r}.err"), "w+")))
         procs.append(subprocess.Popen(
@@ -2741,7 +2762,8 @@ def start_world(cfg: dict, n: int, tmp: str) -> dict:
              json.dumps(c)], stdout=logs[-1][0], stderr=logs[-1][1],
             text=True, env=env))
     return dict(procs=procs, logs=logs, tmp=tmp, n=n,
-                backend=cfg["backend"], t0=time.perf_counter())
+                backend=cfg["backend"], t0=time.perf_counter(),
+                timeout=timeout)
 
 
 def kill_world(w: dict) -> None:
@@ -2755,10 +2777,10 @@ def kill_world(w: dict) -> None:
 def end_world(w: dict) -> list:
     """Each rank's result dict of a :func:`start_world` world, in rank
     order; its wall time in ``w['wall_s']``.  A rank that fails, or a
-    world that outlives :data:`RANK_TIMEOUT`, raises here (every process
-    is killed first)."""
+    world that outlives its timeout, raises here (every process is
+    killed first)."""
     procs, n = w["procs"], w["n"]
-    deadline = w["t0"] + RANK_TIMEOUT
+    deadline = w["t0"] + w["timeout"]
     try:
         # a rank that fails ends the world at once: its peers would wait
         # in their next collective until the timeout
@@ -2776,7 +2798,7 @@ def end_world(w: dict) -> list:
     w["wall_s"] = time.perf_counter() - w["t0"]
     if late:
         raise AssertionError(f"the world of {n} ranks outlived "
-                             f"{RANK_TIMEOUT} s")
+                             f"{w['timeout']} s")
     failed = []
     for r, (p, (out, err)) in enumerate(zip(procs, w["logs"])):
         out.seek(0)
@@ -2799,9 +2821,10 @@ def end_world(w: dict) -> list:
 
 
 def rank_child(cfg: dict) -> int:
-    """One rank of phase 8c: joins the world, builds its
-    :func:`make_rank_mesh` shard on its card and runs ``cfg['run']``;
-    writes its result as JSON."""
+    """One rank of phase 8c (joins the world, builds its
+    :func:`make_rank_mesh` shard on its card and runs ``cfg['run']``) or
+    of phase 6r (``run == "recsys"``: :func:`rank_recsys`); writes its
+    result as JSON."""
     import faulthandler
     faulthandler.enable()
     t0 = time.perf_counter()
@@ -2811,10 +2834,13 @@ def rank_child(cfg: dict) -> int:
     _cuda.lib()                       # the parent's build, loaded
     with process_world(cfg["backend"], rank=rank, world_size=n,
                        port=cfg["port"], timeout_s=cfg["timeout"]):
-        mesh = make_rank_mesh(n, device=dev)
-        fn = rank_full if cfg["run"] == "full" else rank_small
-        res = fn(cfg, mesh)
-    res.update(rank=rank, shard=mesh.shard, device=str(dev),
+        if cfg["run"] == "recsys":
+            res, shard = rank_recsys(cfg), rank
+        else:
+            mesh = make_rank_mesh(n, device=dev)
+            fn = rank_full if cfg["run"] == "full" else rank_small
+            res, shard = fn(cfg, mesh), mesh.shard
+    res.update(rank=rank, shard=shard, device=str(dev),
                seconds=time.perf_counter() - t0)
     with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -3857,6 +3883,8 @@ def phase_recsys(seed: int):
             f"{tuple(tb.shape)} ({tb.numel() * tb.element_size() / 2**30:.2f}"
             f" GiB), embed_dim {cfg.embed_dim}, {cfg.n_sparse} fields"
             + (f", changes {change}" if change else ""))
+        if arch == "dlrm-mlperf":
+            RANK_REFS["dlrm"] = dlrm_reference(cfg, params, seed)
         for shape in shapes:
             r = recsys_cell(arch, shape, cfg, params, rng)
             launches += r["launches"]
@@ -3928,6 +3956,700 @@ def save_bag_calls(path: str, seed: int) -> None:
     size = tbag.save_calls(path, calls)
     log(f"saved {len(calls)} embedding_bag calls of phase 6 to {path} "
         f"({size / 2**20:.1f} MiB)")
+
+
+# ---------------------------------------------------------------------------
+# phase 6r: the recsys steps on ranks, each table sharded by rows
+# ---------------------------------------------------------------------------
+RECSYS_RANKS = 4              # gloo ranks sharing card 0
+RECSYS_RANK_TIMEOUT = 420     # s: the world, and each collective
+RANK_DLRM_SEED = 61           # the DLRM batch phase 6 keeps for 6r
+RANK_DLRM_CALLS = 6           # DLRM forwards a rank: 1 warm-up + 5 timed
+RANK_DCN_B = 16_384           # DCN-v2 train_batch / 4 (a cut for memory:
+                              # four ranks carry the batch's activations)
+RANK_DCN_STEPS = 2
+RANK_LOGIT_ERR = 1e-5         # DLRM logits, ranks vs phase 6: max |diff| /
+                              # max(1e-3, max |logit|); the bags bit-equal
+RANK_TRAIN_TOL = dict(rtol=1e-5, atol=1e-5)   # DCN-v2, ranks vs one card
+RANK_REFS = {}                # phase 6's DLRM batch, bags and logits
+# the functional collectives (torch.distributed._functional_collectives)
+# that DTensor's redistributions and the staged family call
+FUNCOL_CALLS = ("all_reduce", "all_reduce_coalesced", "all_gather_tensor",
+                "all_gather_single", "all_gather_tensor_autograd",
+                "all_gather_single_autograd", "reduce_scatter_tensor",
+                "reduce_scatter_single", "reduce_scatter_tensor_autograd",
+                "reduce_scatter_single_autograd", "all_to_all_single",
+                "all_to_all_single_autograd", "broadcast", "permute_tensor")
+
+
+@contextlib.contextmanager
+def no_card_tensor_over_gloo():
+    """The guard of phase 6r's steps: a functional collective handed a
+    CUDA tensor (over gloo, as every group of the world is) raises with
+    its name, where gloo would crash the process.  ``DTensor``'s own
+    redistributions call these; the staged family
+    (``dist/collectives.py``) hands them host tensors and passes."""
+    from torch.distributed import _functional_collectives as funcol
+    saved = {n: getattr(funcol, n) for n in FUNCOL_CALLS
+             if hasattr(funcol, n)}
+
+    def guarded(name, fn):
+        def call(*args, **kwargs):
+            for a in ttree.leaves((list(args), dict(kwargs))):
+                if isinstance(a, torch.Tensor) and a.is_cuda:
+                    raise RuntimeError(
+                        f"a DTensor collective on the path: {name} of a "
+                        f"CUDA tensor over gloo (it would crash the rank)")
+            return fn(*args, **kwargs)
+        return call
+    for n, fn in saved.items():
+        setattr(funcol, n, guarded(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(funcol, n, fn)
+
+
+def guard_holds(mesh) -> str:
+    """The guard's positive control on a rank: a ``DTensor`` partial sum
+    of a CUDA tensor redistributed to a replica under
+    :func:`no_card_tensor_over_gloo` must raise before anything crosses
+    gloo (the message, for the log)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    t = DTensor.from_local(torch.ones(4, dtype=torch.float64,
+                                      device="cuda"), mesh,
+                           [Replicate(), Partial()], run_check=False)
+    try:
+        with no_card_tensor_over_gloo():
+            t.redistribute(mesh, [Replicate(), Replicate()])
+    except RuntimeError as e:
+        if "a DTensor collective on the path" in str(e):
+            return str(e)
+        raise
+    raise AssertionError("the guard let a DTensor collective of a CUDA "
+                         "tensor through")
+
+
+def windowed_bags(seed: int) -> float:
+    """In phase 6r's parent: the windowed kernels on synthetic bags at S
+    = 2 and 4 windows of a 100,000-row table, fp32 and bf16 at D 16 and
+    128, sum and mean, ids clipped at both ends, empty bags, positions
+    before offsets[0] and after offsets[B]: each window's bags bit-equal
+    to the windowed in-order sum (and, on single-row bags, to the
+    windowed plain version), the windows' sum within ``BAG_ERR`` of the
+    whole kernel's bags (bit-equal on single-row bags); each window's
+    backward block, concatenated, bit-equal to the whole table's
+    backward.  Returns the max |sum of windows - whole|."""
+    rng = np.random.default_rng(seed)
+    R, err, cases = 100_000, 0.0, 0
+    for D in (16, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            table = torch.randn(R, D, device="cuda").to(dt)
+            for lens in (np.r_[0, 40, rng.integers(0, 41, 3000)],
+                         np.ones(5000, np.int64)):
+                off = np.concatenate([[7], 7 + np.cumsum(lens)])
+                ids = rng.integers(-100, R + 100, int(off[-1]) + 9)
+                ids[:4] = (-100, R + 99, 0, R - 1)
+                idx = torch.as_tensor(ids, dtype=torch.int32, device="cuda")
+                off = torch.as_tensor(off, dtype=torch.int32, device="cuda")
+                g = torch.randn(len(lens), D, device="cuda")
+                single = bool((lens == 1).all())
+                for mode in ("sum", "mean"):
+                    whole = ops.embedding_bag(table, idx, off, mode)
+                    whole_g = ops.embedding_bag_backward(g, idx, off, mode,
+                                                         R, dt)
+                    for S in (2, 4):
+                        parts, blocks = [], []
+                        for k in range(S):
+                            lo, hi = k * R // S, (k + 1) * R // S
+                            win = dict(row_lo=lo, row_hi=hi, num_rows=R)
+                            got = keb.embedding_bag(table[lo:hi], idx, off,
+                                                    mode, **win)
+                            name = (f"window {k}/{S} D={D} {dt} "
+                                    f"{len(lens)} bags {mode}")
+                            if not torch.equal(got, tbag.in_order_bags(
+                                    table[lo:hi], idx, off, mode, **win)):
+                                raise AssertionError(f"{name}: differs from "
+                                                     f"the in-order sum")
+                            if single and not torch.equal(
+                                    got, ref.embedding_bag_ref(
+                                        table[lo:hi], idx, off, mode, **win)):
+                                raise AssertionError(f"{name}: differs from "
+                                                     f"the plain version")
+                            parts.append(got)
+                            blocks.append(keb.embedding_bag_backward(
+                                g, idx, off, mode, R, dt, row_lo=lo,
+                                row_hi=hi))
+                        total = sum(parts[1:], parts[0])
+                        d = float((total - whole).abs().max())
+                        scale = float(whole.abs().max())
+                        if (single and not torch.equal(total, whole)) or \
+                                d > BAG_ERR * max(scale, 1e-30):
+                            raise AssertionError(
+                                f"S={S} D={D} {dt} {mode}: windows sum to "
+                                f"{d} from the whole bags")
+                        if not torch.equal(_bits(torch.cat(blocks)),
+                                           _bits(whole_g)):
+                            raise AssertionError(
+                                f"S={S} D={D} {dt} {mode}: the backward "
+                                f"windows differ from the whole backward")
+                        err = max(err, d)
+                        cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 6r windowed kernels: {cases} cases (S 2 and 4; D 16 and "
+        f"128; fp32 and bf16; sum and mean; bags of 0-40 rows and of one; "
+        f"clipped ids, empty bags, positions outside every bag): every "
+        f"window bit-equal to the windowed in-order sum, single-row windows "
+        f"to the windowed plain version; windows sum to the whole bags "
+        f"within {err:.3g} (single-row bags bit-equal); backward windows "
+        f"concatenated bit-equal to the whole backward")
+    return err
+
+
+def dlrm_reference(cfg, params, seed: int) -> dict:
+    """Phase 6's single-card DLRM-MLPerf forward (bf16 table) of one
+    seeded serve_p99 batch, kept on the host for phase 6r: the batch,
+    the lookup's bags and the logits."""
+    spec = registry.get_shape("dlrm-mlperf", "serve_p99")
+    batch = recsys_batch(cfg, spec, np.random.default_rng([seed,
+                                                           RANK_DLRM_SEED]))
+    bags = []
+
+    def keep(table, idx, off, mode="sum"):
+        bags.append(real(table, idx, off, mode))
+        return bags[-1]
+    with bags_through(keep) as real:
+        logits = rsteps.make_recsys_forward(cfg)(params, batch)
+    return dict(batch={k: v.cpu() for k, v in batch.items()},
+                bags=bags[0].cpu(), logits=logits.float().cpu())
+
+
+def dcn_reference(seed: int) -> tuple:
+    """Phase 6r's single-card DCN-v2 run (fp32, the whole table): the
+    seed's parameters, ``RANK_DCN_STEPS`` AdamW steps at B
+    ``RANK_DCN_B``; returns (params, AdamW state, losses, the last
+    step's bag and backward calls, their profiler times), on the card."""
+    cfg, entry = registry.get("dcn-v2").config, registry.get("dcn-v2")
+    params = rsteps.init_params_for(entry, cfg, seed=seed, device="cuda")
+    opt = toptim.AdamW()
+    state = opt.init(params)
+    step = rsteps.make_recsys_train_step(cfg, opt)
+    losses = []
+    with spying_bag_kernels() as calls:
+        for b in dcn_batches(cfg, RANK_DCN_B, RANK_DCN_STEPS, seed):
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+    times = {}
+    a, k = calls["forward"][-1]
+    times["forward_ms"] = profiled_ms(lambda: keb.embedding_bag(*a, **k),
+                                      "embedding_bag")[0]
+    a, k = calls["backward"][-1]
+    times["backward_ms"] = device_profile(
+        lambda: keb.embedding_bag_backward(*a, **k), warm=True)["busy_ms"]
+    del calls
+    return params, state, losses, times
+
+
+def rank_recsys(cfg: dict) -> dict:
+    """One rank of phase 6r on card 0: the (1, 4) ``("data", "model")``
+    mesh of the world, then (a) DLRM-MLPerf's bf16 table and (b) DCN-v2's
+    two train steps, each with this rank's block of rows (made from the
+    seed's stream) and the parent's batches; see :func:`phase_recsys_ranks`."""
+    from repro_torch.dist import collectives as tcoll
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh((1, RECSYS_RANKS), ("data", "model"), "cuda")
+    res = {"guard": guard_holds(mesh)}
+    psums = []
+    real_psum = tcoll.mesh_psum
+
+    def timed_psum(x, logical, rules=None):
+        if logical != "rows":
+            return real_psum(x, logical, rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = real_psum(x, logical, rules)
+        torch.cuda.synchronize()
+        psums.append((x.numel() * x.element_size(),
+                      (time.perf_counter() - t0) * 1e3))
+        return y
+    tcoll.mesh_psum = timed_psum
+    try:
+        res["dlrm"] = rank_dlrm(cfg, mesh, psums)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["dcn"] = rank_dcn(cfg, mesh, psums)
+    finally:
+        tcoll.mesh_psum = real_psum
+    return res
+
+
+def _rank_layout(mesh, arch: str, cfg, shape: str):
+    """(rules, placement tree, this rank's table rows) of ``cfg`` at
+    ``shape`` on ``mesh`` by the dry-run's ``rules_for``."""
+    from repro_torch.dist.sharding import local_block, tree_shardings
+    from repro_torch.launch import dryrun as tdry
+    entry = registry.get(arch)
+    rules = tdry.rules_for(mesh, entry, registry.get_shape(arch, shape), {})
+    pl = tree_shardings(rules, rsteps.param_specs_for(entry, cfg))
+    rows = local_block(rmodels.padded_rows(cfg.total_rows), mesh,
+                       pl["table"])
+    return rules, pl, rows
+
+
+def _from_locals(values, mesh, placements):
+    """Each rank's own blocks as ``DTensor``s (no collective: every rank
+    made its blocks from the same seed)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import distribute_tree
+    return distribute_tree(values, mesh, placements, distribute=lambda t, m, p:
+                           DTensor.from_local(t, m, p, run_check=False))
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+class _KernelSpy:
+    """A stand-in for ``kernels.embedding_bag`` in ``ops``: its two bag
+    wrappers keep each call's inputs, then run the module's (the
+    wrappers, their launch counts and every other name stay the
+    module's own)."""
+
+    def __init__(self, mod, calls):
+        self._mod, self._calls = mod, calls
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+    def embedding_bag(self, *a, **k):
+        self._calls["forward"].append((a, k))
+        return self._mod.embedding_bag(*a, **k)
+
+    def embedding_bag_backward(self, *a, **k):
+        self._calls["backward"].append((a, k))
+        return self._mod.embedding_bag_backward(*a, **k)
+
+
+@contextlib.contextmanager
+def spying_bag_kernels():
+    """``{"forward": [...], "backward": [...]}``: the inputs of every bag
+    kernel call ``ops`` makes for the duration."""
+    calls = {"forward": [], "backward": []}
+    real = ops._eb
+    ops._eb = _KernelSpy(real, calls)
+    try:
+        yield calls
+    finally:
+        ops._eb = real
+
+
+def replay_windows(calls) -> tuple:
+    """After the counts are read: each kept windowed forward call again,
+    bit-equal to the windowed in-order sum and (single-row bags) to the
+    windowed plain version; each backward call twice, bit-equal run to
+    run, rows of one contribution bit-equal to the windowed plain
+    version, the rest within ``BWD_ERR`` of the summed magnitudes.
+    Returns (calls replayed, the backward's max |difference| from the
+    plain version)."""
+    n, err = 0, 0.0
+    for a, k in calls["forward"]:
+        table, idx, off, mode = a
+        got = keb.embedding_bag(*a, **k)
+        if not torch.equal(got, tbag.in_order_bags(table, idx, off, mode,
+                                                   **k)):
+            raise AssertionError("a windowed bag differs from the windowed "
+                                 "in-order sum")
+        lo, hi = tbag.bag_bounds(off, idx.numel())
+        one = (hi - lo) == 1
+        want = ref.embedding_bag_ref(table, idx, off, mode, **k)
+        if not torch.equal(got[one], want[one]):
+            raise AssertionError("a windowed single-row bag differs from "
+                                 "the windowed plain version")
+        n += 1
+    for a, k in calls["backward"]:
+        g, idx, off, mode, R, dtype = a
+        got = keb.embedding_bag_backward(*a, **k)
+        again = keb.embedding_bag_backward(*a, **k)
+        if not torch.equal(_bits(got), _bits(again)):
+            raise AssertionError("two windowed backward calls differ")
+        want = ref.embedding_bag_backward_ref(*a, **k)
+        lo_w, hi_w = k["row_lo"], k["row_hi"]
+        pos = torch.arange(idx.numel(), device=idx.device)
+        rows = idx.long().clamp(0, R - 1)
+        inside = (pos >= off[0]) & (pos < off[-1]) & (rows >= lo_w) & \
+            (rows < hi_w)
+        cnt = torch.bincount(rows[inside] - lo_w, minlength=hi_w - lo_w)
+        one, many = cnt == 1, cnt > 1
+        if not torch.equal(_bits(got[one]), _bits(want[one])) or \
+                bool((got[cnt == 0] != 0).any()):
+            raise AssertionError("a windowed backward row of one "
+                                 "contribution differs from the plain "
+                                 "version")
+        mag = ref.embedding_bag_backward_ref(g.abs(), idx, off, mode, R,
+                                             torch.float32, **k)[many]
+        d = (got[many].float() - want[many].float()).abs()
+        if bool((d > BWD_ERR * mag).any()):
+            raise AssertionError("a windowed backward row beyond "
+                                 f"{BWD_ERR} of its summed magnitudes")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        n += 1
+    return n, err
+
+
+def _turns(fn):
+    """``fn()`` on each rank in turn, the others waiting (a barrier after
+    each turn): the card's time belongs to one rank while it measures."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def rank_dlrm(cfg: dict, mesh, psums: list) -> dict:
+    """(a) on one rank: DLRM-MLPerf's bf16 table, rows over ``("data",
+    "model")`` (``rules_for``'s layout past 5e7 rows), this rank's
+    46,941,952 rows made from the seed's stream; the parent's serve_p99
+    batch through ``make_recsys_forward`` ``RANK_DLRM_CALLS`` times
+    (launches asserted), the bags and logits written for the parent; the
+    kept windowed call replayed, and timed in this rank's turn."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist.sharding import Resharding, use_rules
+    arch = "dlrm-mlperf"
+    entry = registry.get(arch)
+    c = dataclasses.replace(entry.config, param_dtype="bfloat16")
+    rules, pl, (lo, hi) = _rank_layout(mesh, arch, c, "serve_p99")
+    t0 = time.perf_counter()
+    params = rsteps.init_params_for(entry, c, seed=cfg["seed"],
+                                    device="cuda", table_rows=(lo, hi))
+    params = _from_locals(params, mesh, pl)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.load(os.path.join(cfg["out"], "dlrm_batch.pt"))
+    batch = _from_locals({k: v.cuda() for k, v in host.items()}, mesh,
+                         {k: rules.placements(("batch",) + (None,) * (
+                             v.dim() - 1)) for k, v in host.items()})
+    fwd = rsteps.make_recsys_forward(c)
+    bags = []
+
+    def keep(table, idx, off, mode="sum"):
+        bags.append(real(table, idx, off, mode))
+        return bags[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    del psums[:]
+    times = []
+    with no_card_tensor_over_gloo(), use_rules(rules), \
+            implicit_replication(), Resharding(), \
+            spying_bag_kernels() as calls, bags_through(keep) as real:
+        for _ in range(RANK_DLRM_CALLS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = fwd(params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    counts = ops.launch_counts()
+    want = RANK_DLRM_CALLS * LOOKUPS["dot"]
+    if counts["embedding_bag"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"DLRM on a rank: launches {counts}, expected "
+                             f"{want} embedding_bag")
+    peak = torch.cuda.max_memory_allocated()
+    reduce = list(psums)
+    calls["forward"] = calls["forward"][-1:]
+    replayed, _ = replay_windows(calls)
+    bag = _local(bags[-1]).float()
+    out = _local(logits).float()
+    if not torch.isfinite(out).all():
+        raise AssertionError("DLRM on a rank: logits not finite")
+    rank = mesh.get_rank()
+    if rank == 0:
+        torch.save({"bags": bag.cpu(), "logits": out.cpu()},
+                   os.path.join(cfg["out"], "dlrm_out.pt"))
+    a, k = calls["forward"][0]
+    table, idx, off, mode = a
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def timing():
+        row = dict(
+            device_ms=profiled_ms(lambda: keb.embedding_bag(*a, **k),
+                                  "embedding_bag")[0],
+            ms=cuda_ms_cold(lambda: keb.embedding_bag(*a, **k), flush),
+            plain_ms=cuda_ms_cold(lambda: ref.embedding_bag_ref(*a, **k),
+                                  flush))
+        clipped = idx.long().clamp(0, k["num_rows"] - 1)
+        mine = clipped[(clipped >= lo) & (clipped < hi)]
+        need = (torch.unique(mine).numel() * table.shape[1] *
+                table.element_size() + idx.numel() * 4 + off.numel() * 4 +
+                (off.numel() - 1) * table.shape[1] * 4)
+        row.update(bytes=need, bound_ms=need / HBM_BYTES_PER_S * 1e3,
+                   rows_in_window=int(mine.numel()))
+        return row
+    timed = _turns(timing)
+    med = float(np.median(times[1:]))
+    dev_ms = ("not measured" if timed["device_ms"] is None
+              else f"{timed['device_ms']:.4f}")
+    log(f"6r (a) dlrm-mlperf rank {rank}: rows [{lo}, {hi}) of "
+        f"{k['num_rows']} ({(hi - lo) * table.shape[1] * 2 / 2**30:.2f} GiB "
+        f"bf16) made in {init_s:.1f} s; forward {med:.3f} ms median of "
+        f"{len(times) - 1} ({', '.join(f'{t:.2f}' for t in times[1:])}); "
+        f"bag reduce {reduce[-1][0]} bytes, "
+        f"{np.median([r[1] for r in reduce]):.3f} ms host median over "
+        f"{len(reduce)}; launches {counts['embedding_bag']} = "
+        f"{RANK_DLRM_CALLS} x {LOOKUPS['dot']}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; its windowed call "
+        f"({timed['rows_in_window']} of {idx.numel()} rows in the window) "
+        f"{dev_ms} ms by the profiler, {timed['ms']:.4f} flushed, plain "
+        f"{timed['plain_ms']:.4f}, bound {timed['bound_ms']:.4f}; "
+        f"{replayed} windowed call replayed bit-equal")
+    return dict(rows=[lo, hi], init_s=init_s, forward_ms=times,
+                reduce=reduce, launches=counts, peak_bytes=peak,
+                timing=timed, replayed=replayed,
+                bags_sha=hashlib.sha256(bag.cpu().numpy().tobytes()
+                                        ).hexdigest())
+
+
+def rank_dcn(cfg: dict, mesh, psums: list) -> dict:
+    """(b) on one rank: DCN-v2 as published (fp32), rows over ``model``
+    (``rules_for``'s layout), this rank's 8,440,704 rows made from the
+    seed's stream; ``RANK_DCN_STEPS`` AdamW steps at B ``RANK_DCN_B`` on
+    the parent's batches (made here from the same seed), launches
+    asserted (one forward bag and one backward a step); this rank's
+    blocks of the table and its moments, and (rank 0) every replicated
+    leaf, written for the parent; the last step's windowed calls
+    replayed, and timed in this rank's turn."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist.sharding import Resharding, use_rules
+    entry = registry.get("dcn-v2")
+    c = entry.config
+    rules, pl, (lo, hi) = _rank_layout(mesh, "dcn-v2", c, "train_batch")
+    t0 = time.perf_counter()
+    params = _from_locals(rsteps.init_params_for(
+        entry, c, seed=cfg["seed"], device="cuda", table_rows=(lo, hi)),
+        mesh, pl)
+    opt = toptim.AdamW()
+    state = opt.init(params)
+    step = rsteps.make_recsys_train_step(c, opt)
+    batches = [_from_locals(b, mesh, {k: rules.placements(
+        ("batch",) + (None,) * (v.dim() - 1)) for k, v in b.items()})
+        for b in dcn_batches(c, RANK_DCN_B, RANK_DCN_STEPS, cfg["seed"])]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    del psums[:]
+    times, losses = [], []
+    with no_card_tensor_over_gloo(), use_rules(rules), \
+            implicit_replication(), Resharding(), \
+            spying_bag_kernels() as calls:
+        for b in batches:
+            del calls["forward"][:], calls["backward"][:]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(_local(m["loss"])))
+    counts = ops.launch_counts()
+    want = {"embedding_bag": RANK_DCN_STEPS * LOOKUPS["cross"],
+            "embedding_bag_backward": RANK_DCN_STEPS}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"DCN-v2 on a rank: launches {counts}, "
+                             f"expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    reduce = list(psums)
+    replayed, bwd_err = replay_windows(calls)
+    rank = mesh.get_rank()
+    blocks = {k: _local(t).cpu() for k, t in (
+        ("table", params["table"]), ("mu", state.mu["table"]),
+        ("nu", state.nu["table"]))}
+    if rank == 0:
+        def rest(tr):
+            return {k: ttree.tree_map(lambda t: _local(t).cpu(), v)
+                    for k, v in tr.items() if k != "table"}
+        blocks.update(params_rest=rest(params), mu_rest=rest(state.mu),
+                      nu_rest=rest(state.nu))
+    torch.save(dict(blocks, rows=(lo, hi), losses=losses),
+               os.path.join(cfg["out"], f"dcn_rank{rank}.pt"))
+    del blocks
+    (fa, fk), (ba, bk) = calls["forward"][-1], calls["backward"][-1]
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    g, idx = ba[0], ba[1]
+    need = ((hi - lo) * g.shape[1] * 4 + g.numel() * 4 + idx.numel() * 4
+            + ba[2].numel() * 4)
+
+    def timing():
+        return dict(
+            backward_bytes=need,
+            backward_bound_ms=need / HBM_BYTES_PER_S * 1e3,
+            forward_device_ms=profiled_ms(
+                lambda: keb.embedding_bag(*fa, **fk), "embedding_bag")[0],
+            forward_ms=cuda_ms_cold(lambda: keb.embedding_bag(*fa, **fk),
+                                    flush),
+            backward_device_ms=device_profile(
+                lambda: keb.embedding_bag_backward(*ba, **bk),
+                warm=True)["busy_ms"],
+            backward_ms=cuda_ms_cold(
+                lambda: keb.embedding_bag_backward(*ba, **bk), flush),
+            backward_plain_ms=cuda_ms_cold(
+                lambda: ref.embedding_bag_backward_ref(*ba, **bk), flush))
+    timed = _turns(timing)
+    fdev = ("not measured" if timed["forward_device_ms"] is None
+            else f"{timed['forward_device_ms']:.4f}")
+    log(f"6r (b) dcn-v2 rank {rank}: rows [{lo}, {hi}), made in "
+        f"{init_s:.1f} s; steps {', '.join(f'{t:.1f}' for t in times)} ms "
+        f"(B {RANK_DCN_B}), losses {losses}; bag reduce "
+        f"{reduce[0][0]} bytes, "
+        f"{', '.join(f'{r[1]:.3f}' for r in reduce)} ms host; launches "
+        f"{json.dumps(want)}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"windowed forward {fdev} ms by the profiler, "
+        f"{timed['forward_ms']:.4f} flushed; windowed backward "
+        f"{timed['backward_device_ms']:.4f} ms device by the profiler, "
+        f"{timed['backward_ms']:.4f} flushed, plain "
+        f"{timed['backward_plain_ms']:.4f}, bound "
+        f"{timed['backward_bound_ms']:.4f}; {replayed} windowed calls "
+        f"replayed (forward bit-equal, backward rows of one contribution "
+        f"bit-equal)")
+    return dict(rows=[lo, hi], init_s=init_s, step_ms=times, losses=losses,
+                reduce=reduce, launches=counts, peak_bytes=peak,
+                timing=timed, replayed=replayed, backward_err=bwd_err)
+
+
+def dlrm_alone(seed: int) -> dict:
+    """``--recsys-ranks-only``: phase 6's DLRM-MLPerf reference alone (the
+    bf16 table on the card for one forward, then freed)."""
+    arch = "dlrm-mlperf"
+    cfg = dataclasses.replace(registry.get(arch).config,
+                              param_dtype="bfloat16")
+    params = rsteps.init_params_for(registry.get(arch), cfg, seed=seed,
+                                    device="cuda")
+    out = dlrm_reference(cfg, params, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _close(name, got, want, tol, scale=False) -> float:
+    """``got`` (host) within ``tol`` of ``want`` (atol times the largest
+    |want| with ``scale``: Adam's moments); the max |difference|."""
+    want = want.float().cpu()
+    got = got.float()
+    atol = tol["atol"] * (float(want.abs().max()) if scale else 1.0)
+    d = (got - want).abs()
+    if got.shape != want.shape or bool((d > atol + tol["rtol"] *
+                                        want.abs()).any()):
+        raise AssertionError(f"{name}: beyond {tol} of the single card "
+                             f"(max |diff| {float(d.max())})")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_recsys_ranks(seed: int) -> dict:
+    """Phase 6r: the recsys steps on ranks, on one card.  In this process:
+    the windowed kernels on synthetic bags (:func:`windowed_bags`) and
+    DCN-v2's single-card reference steps (:func:`dcn_reference`), kept on
+    the card.  Then one world of ``RECSYS_RANKS`` gloo ranks on card 0
+    (``--rank-child`` processes, killed after ``RECSYS_RANK_TIMEOUT`` s),
+    each on the (1, 4) ``("data", "model")`` mesh with its own block of
+    rows: (a) DLRM-MLPerf's bf16 table over all four ranks, phase 6's
+    batch: the bags bit-equal to phase 6's and the logits within
+    ``RANK_LOGIT_ERR``; (b) DCN-v2's two train steps: losses, the
+    gathered table and its moments, and every replicated leaf within
+    ``RANK_TRAIN_TOL`` of the single card.  No ``DTensor`` collective
+    runs on a CUDA tensor (:func:`no_card_tensor_over_gloo`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    win_err = windowed_bags(seed)
+    dl = RANK_REFS.get("dlrm") or dlrm_alone(seed)
+    t0 = time.perf_counter()
+    ref_p, ref_s, ref_losses, ref_times = dcn_reference(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_ms = ("not measured" if ref_times["forward_ms"] is None
+              else f"{ref_times['forward_ms']:.4f}")
+    log(f"6r (b) single card: dcn-v2 {RANK_DCN_STEPS} steps at B "
+        f"{RANK_DCN_B} in {time.perf_counter() - t0:.1f} s, losses "
+        f"{ref_losses}; its last step's unsharded bag {fwd_ms} ms and "
+        f"backward {ref_times['backward_ms']:.4f} ms device by the "
+        f"profiler")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dl["batch"], os.path.join(tmp, "dlrm_batch.pt"))
+        w = start_world(dict(run="recsys", backend="gloo", device="cuda:0",
+                             seed=seed), RECSYS_RANKS, tmp,
+                        timeout=RECSYS_RANK_TIMEOUT)
+        ranks = end_world(w)
+        got = torch.load(os.path.join(tmp, "dlrm_out.pt"))
+        if not torch.equal(got["bags"], dl["bags"]) or \
+                len({r["dlrm"]["bags_sha"] for r in ranks}) != 1:
+            raise AssertionError("6r (a): the ranks' bags differ from phase "
+                                 "6's single-card bags")
+        scale = max(float(dl["logits"].abs().max()), 1e-3)
+        logit_err = float((got["logits"] - dl["logits"]).abs().max())
+        if got["logits"].shape != dl["logits"].shape or \
+                logit_err > RANK_LOGIT_ERR * scale:
+            raise AssertionError(f"6r (a): logits {logit_err} from phase "
+                                 f"6's (limit {RANK_LOGIT_ERR} x {scale})")
+        errs = {"table": 0.0, "mu": 0.0, "nu": 0.0, "rest": 0.0}
+        for r in range(RECSYS_RANKS):
+            part = torch.load(os.path.join(tmp, f"dcn_rank{r}.pt"))
+            lo, hi = part["rows"]
+            _close(f"6r (b) rank {r} losses", torch.tensor(part["losses"]),
+                   torch.tensor(ref_losses), RANK_TRAIN_TOL)
+            for k, want in (("table", ref_p["table"]),
+                            ("mu", ref_s.mu["table"]),
+                            ("nu", ref_s.nu["table"])):
+                errs[k] = max(errs[k], _close(
+                    f"6r (b) rank {r} {k} rows [{lo}, {hi})", part[k],
+                    want[lo:hi], RANK_TRAIN_TOL, scale=k != "table"))
+            if r == 0:
+                for k, tr, sc in (("params_rest", ref_p, False),
+                                  ("mu_rest", ref_s.mu, True),
+                                  ("nu_rest", ref_s.nu, True)):
+                    want = {n: v for n, v in tr.items() if n != "table"}
+                    for g_, w_ in zip(ttree.leaves(part[k]),
+                                      ttree.leaves(want)):
+                        errs["rest"] = max(errs["rest"], _close(
+                            f"6r (b) {k}", g_, w_, RANK_TRAIN_TOL, sc))
+            del part
+    del ref_p, ref_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"embedding_bag": sum(r["dlrm"]["launches"]["embedding_bag"]
+                                     + r["dcn"]["launches"]["embedding_bag"]
+                                     for r in ranks),
+                "embedding_bag_backward": sum(
+                    r["dcn"]["launches"]["embedding_bag_backward"]
+                    for r in ranks)}
+    log(f"6r: {RECSYS_RANKS} gloo ranks on card 0, world {w['wall_s']:.1f} "
+        f"s: (a) dlrm-mlperf bags bit-equal to phase 6's, logits within "
+        f"{logit_err:.3g} (limit {RANK_LOGIT_ERR} x {scale:.3g}); (b) "
+        f"dcn-v2 losses, table rows, moments and replicated leaves within "
+        f"{RANK_TRAIN_TOL} of the single card (max |diff| table "
+        f"{errs['table']:.3g}, mu {errs['mu']:.3g}, nu {errs['nu']:.3g}, "
+        f"the rest {errs['rest']:.3g}); launches {json.dumps(launches)}; no "
+        f"DTensor collective on a CUDA tensor (the guard's control on each "
+        f"rank: {ranks[0]['guard']!r})")
+    return dict(wall_s=w["wall_s"], windowed_err=win_err,
+                logit_err=logit_err, train_err=errs, launches=launches,
+                single=ref_times, single_losses=ref_losses,
+                ranks=[{k: r[k] for k in ("rank", "dlrm", "dcn", "seconds")}
+                       for r in ranks])
+
+
+def ranked_rows(table: list, ranked: dict) -> None:
+    """Join phase 6r's launches to the table's rows of the two bag
+    kernels that are there and not joined yet (``path`` gains
+    ``recsys_ranks``)."""
+    for row in table:
+        name = row["name"]
+        if name in ranked["launches"] and "recsys_ranks" not in row["path"]:
+            row["launches"] += ranked["launches"][name]
+            row["path"] += "+recsys_ranks"
 
 
 # ---------------------------------------------------------------------------
@@ -5407,6 +6129,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks-only", action="store_true",
                     help="run only the build and the index on ranks "
                          "(phase 8c, with its own brute force)")
+    ap.add_argument("--recsys-ranks-only", action="store_true",
+                    help="run only the build and the recsys steps on ranks "
+                         "(phase 6r, with its own DLRM reference)")
     ap.add_argument("--rank-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--intersect-calls", default="", metavar="PATH",
                     help="run only the build and phase 4, and save the "
@@ -5444,7 +6169,8 @@ def main(argv=None) -> int:
     saving = args.intersect_calls or args.bag_calls or args.segment_calls
     launch = not (saving or args.paged_only or args.recsys_only or
                   args.serve_only or args.sharded_only or args.lm_only or
-                  args.train_only or args.gnn_only or args.ranks_only)
+                  args.train_only or args.gnn_only or args.ranks_only or
+                  args.recsys_ranks_only)
     traces = LaunchTraces() if launch else None
     try:
         table = run_phases(args, saving, table)
@@ -5492,11 +6218,11 @@ def run_phases(args, saving, table) -> list:
         del docs
     elif not (args.paged_only or args.recsys_only or args.lm_only or
               args.train_only or args.gnn_only or args.launch_only or
-              args.ranks_only):
+              args.ranks_only or args.recsys_ranks_only):
         table = phase_index(args.segment_log2, serve_only=args.serve_only)
     only = (args.serve_only or args.sharded_only or args.lm_only or
             args.train_only or args.gnn_only or args.launch_only or
-            args.ranks_only)
+            args.ranks_only or args.recsys_ranks_only)
     if not (args.recsys_only or only or saving):
         t0 = time.perf_counter()
         row, counts, paged_sum = phase_paged(seed=0)
@@ -5514,24 +6240,37 @@ def run_phases(args, saving, table) -> list:
         t0 = time.perf_counter()
         table.append(phase_recsys(seed=0))
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
+    ranked = None
+    if not (args.paged_only or args.recsys_only or saving or
+            (only and not args.recsys_ranks_only)):
+        t0 = time.perf_counter()
+        ranked = phase_recsys_ranks(seed=0)
+        log(f"phase 6r (recsys on ranks) {time.perf_counter() - t0:.1f} s")
+        log("recsys ranks: " + json.dumps(ranked))
+        ranked_rows(table, ranked)
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.train_only or args.gnn_only or saving
-            or args.launch_only or args.ranks_only):
+            or args.launch_only or args.ranks_only or
+            args.recsys_ranks_only):
         t0 = time.perf_counter()
         lms = phase_lm(seed=0)
         log("lm phase: " + json.dumps(lms))
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.lm_only or args.gnn_only or saving
-            or args.launch_only or args.ranks_only):
+            or args.launch_only or args.ranks_only or
+            args.recsys_ranks_only):
         t0 = time.perf_counter()
         row, trained = phase_train(seed=0)
         table.append(row)
+        if ranked is not None:
+            ranked_rows(table, ranked)
         log("train phase: " + json.dumps(trained))
         log(f"train phase {time.perf_counter() - t0:.1f} s")
     if not (args.paged_only or args.recsys_only or args.serve_only or
             args.sharded_only or args.lm_only or args.train_only or saving
-            or args.launch_only or args.ranks_only):
+            or args.launch_only or args.ranks_only or
+            args.recsys_ranks_only):
         t0 = time.perf_counter()
         log("gnn phase: " + json.dumps(phase_gnn(seed=0)))
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")

@@ -59,6 +59,15 @@
 //   as zeros once per chunk.  (Staging a tile's rows in shared memory
 //   and adding them by columns measured slower at the recsys lengths.)
 // No atomics and no host sync; the kernel allocates nothing.
+//
+// A row window (a table sharded by rows over ranks, kernels/ops.py): the
+// table holds rows [row_lo, row_hi) of an R-row table.  Ids still clip
+// into [0, R-1]; a clipped id inside the window reads table[row - row_lo],
+// and one outside it reads nothing and adds a zero row, in its place in
+// the bag's order (a single-row bag outside the window writes zeros).  So
+// each bag is the in-order sum of its rows in the window, the windowed
+// plain version's bits.  The window is a template flag: a call over the
+// whole table compiles to the unwindowed kernel and keeps its code.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,11 +158,27 @@ __device__ __forceinline__ float opaque_one() {
   return one;
 }
 
-template <typename E, int VB>
+// A row load of the clipped id j: table[row - row_lo] when the row lies
+// in the window (always, unwindowed), else zero bits, read from nowhere.
+template <int VB, bool W, typename E>
+__device__ __forceinline__ Raw<VB> load_row(const E* table, int32_t j,
+                                            int64_t R, int64_t row_lo,
+                                            int64_t row_hi, int D, int col) {
+  const int64_t row = j < 0 ? 0 : (j >= R ? R - 1 : j);
+  if constexpr (W) {
+    if (row < row_lo || row >= row_hi) return Raw<VB>{};
+    return load_raw<VB>(table + (row - row_lo) * D + col);
+  } else {
+    return load_raw<VB>(table + row * D + col);
+  }
+}
+
+template <typename E, int VB, bool W>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) embedding_bag_kernel(
     const E* __restrict__ table, const int32_t* __restrict__ indices,
     const int32_t* __restrict__ offsets, float* __restrict__ out,
-    int64_t n, int64_t B, int64_t R, int D, int mean, int lpr, int K) {
+    int64_t n, int64_t B, int64_t R, int64_t row_lo, int64_t row_hi, int D,
+    int mean, int lpr, int K) {
   constexpr int V = VB / (int)sizeof(E);     // elements per load
   constexpr int U = kRows;
   __shared__ int64_t s_start[kWarps][kMaxBags + 1];  // bag k's first row
@@ -198,10 +223,9 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) embedding_bag_kernel(
           for (int u = 0; u < U; ++u) j[u] = load_index(indices + j[u]);
           Raw<VB> raw[U];
 #pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int64_t row = j[u] < 0 ? 0 : (j[u] >= R ? R - 1 : j[u]);
-            raw[u] = load_raw<VB>(table + row * D + (lane_on ? col : 0));
-          }
+          for (int u = 0; u < U; ++u)
+            raw[u] = load_row<VB, W>(table, j[u], R, row_lo, row_hi, D,
+                                     lane_on ? col : 0);
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int t = t0 + u * G + g;
@@ -307,10 +331,9 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) embedding_bag_kernel(
         for (int u = 0; u < U; ++u) j[u] = load_index(indices + j[u]);
         Raw<VB> raw[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int64_t row = j[u] < 0 ? 0 : (j[u] >= R ? R - 1 : j[u]);
-          raw[u] = load_raw<VB>(table + row * D + (lane_on ? col : 0));
-        }
+        for (int u = 0; u < U; ++u)
+          raw[u] = load_row<VB, W>(table, j[u], R, row_lo, row_hi, D,
+                                   lane_on ? col : 0);
         // fold the group's rows in order into acc; store each bag at its
         // last row
         auto fold = [&]() {
@@ -371,7 +394,7 @@ struct Args {
   const int32_t* indices;
   const int32_t* offsets;
   float* out;
-  int64_t n, B, R, D, mean, lpr, K, grid;
+  int64_t n, B, R, row_lo, row_hi, D, mean, lpr, K, grid;
   cudaStream_t stream;
 };
 
@@ -380,9 +403,17 @@ int launch_vb(const Args& a) {
   if constexpr (VB < (int)sizeof(E) || VB / (int)sizeof(E) > 4) {
     return (int)cudaErrorInvalidValue;
   } else {
-    embedding_bag_kernel<E, VB><<<(unsigned)a.grid, kThreads, 0, a.stream>>>(
-        static_cast<const E*>(a.table), a.indices, a.offsets, a.out, a.n,
-        a.B, a.R, (int)a.D, (int)a.mean, (int)a.lpr, (int)a.K);
+    const E* table = static_cast<const E*>(a.table);
+    if (a.row_lo == 0 && a.row_hi == a.R)
+      embedding_bag_kernel<E, VB, false>
+          <<<(unsigned)a.grid, kThreads, 0, a.stream>>>(
+              table, a.indices, a.offsets, a.out, a.n, a.B, a.R, 0, a.R,
+              (int)a.D, (int)a.mean, (int)a.lpr, (int)a.K);
+    else
+      embedding_bag_kernel<E, VB, true>
+          <<<(unsigned)a.grid, kThreads, 0, a.stream>>>(
+              table, a.indices, a.offsets, a.out, a.n, a.B, a.R, a.row_lo,
+              a.row_hi, (int)a.D, (int)a.mean, (int)a.lpr, (int)a.K);
     return (int)cudaGetLastError();
   }
 }
@@ -400,8 +431,10 @@ int launch(const Args& a, int64_t vec_bytes) {
 
 }  // namespace
 
-// table: [R, D] fp32 or bf16 (table_bf16); indices int32[n]; offsets
-// int32[B + 1]; out fp32 [B, D]; mean: 0 = sum, 1 = mean.  The launch
+// table: [row_hi - row_lo, D] fp32 or bf16 (table_bf16), rows [row_lo,
+// row_hi) of an [R, D] table (0 and R: the whole table); indices
+// int32[n], clipped into [0, R-1]; offsets int32[B + 1]; out fp32 [B, D];
+// mean: 0 = sum, 1 = mean.  The launch
 // plan (kernels/embedding_bag.launch_plan): vec_bytes per row load (at
 // most 4 elements), lanes_per_row = min(32, ceil(D / elements per load)),
 // bags_per_chunk (1 to 128) and the grid (CTAs of 8 warps; the warps
@@ -411,13 +444,15 @@ int launch(const Args& a, int64_t vec_bytes) {
 extern "C" int embedding_bag_launch(const void* table, int64_t table_bf16,
                                     const int32_t* indices, int64_t n,
                                     const int32_t* offsets, int64_t B,
-                                    int64_t R, int64_t D, int64_t mean,
+                                    int64_t R, int64_t row_lo,
+                                    int64_t row_hi, int64_t D, int64_t mean,
                                     int64_t vec_bytes, int64_t lanes_per_row,
                                     int64_t bags_per_chunk, int64_t grid,
                                     float* out, cudaStream_t stream) {
   if (B <= 0 || D <= 0) return 0;
   const int64_t esize = table_bf16 ? 2 : 4;
-  if (R <= 0 || D > (1 << 30) || vec_bytes < esize ||
+  if (R <= 0 || row_lo < 0 || row_hi <= row_lo || row_hi > R ||
+      D > (1 << 30) || vec_bytes < esize ||
       vec_bytes > 4 * esize || (D * esize) % vec_bytes != 0 ||
       reinterpret_cast<uintptr_t>(table) % vec_bytes != 0)
     return (int)cudaErrorInvalidValue;
@@ -426,8 +461,8 @@ extern "C" int embedding_bag_launch(const void* table, int64_t table_bf16,
   if (lanes_per_row != want_lpr || bags_per_chunk < 1 ||
       bags_per_chunk > kMaxBags || grid < 1 || grid > (1 << 30))
     return (int)cudaErrorInvalidValue;
-  const Args a{table, indices, offsets, out, n, B, R, D, mean,
-               lanes_per_row, bags_per_chunk, grid, stream};
+  const Args a{table, indices, offsets, out, n, B, R, row_lo, row_hi, D,
+               mean, lanes_per_row, bags_per_chunk, grid, stream};
   if (table_bf16) return launch<unsigned short>(a, vec_bytes);
   return launch<float>(a, vec_bytes);
 }

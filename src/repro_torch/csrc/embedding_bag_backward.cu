@@ -45,6 +45,18 @@
 // plain version's in-order sum; longer runs differ from it only in
 // association (fp32 rounding).
 //
+// A row window (the block [row_lo, row_hi) of a table sharded by rows,
+// kernels/ops.py): the plan's sort gives the window's rows the keys
+// row - row_lo and every other position the key R (the window's rows), so
+// this kernel sees the window as its table and writes its [R, D] block.
+// To keep each row's order of addition that of the whole table's call,
+// the chunks keep the whole sort's boundaries: `phase` (a device int32,
+// the count of in-bag positions whose row lies below the window, mod
+// kChunk) shifts them, chunk c covering sorted entries [c * kChunk -
+// phase, (c + 1) * kChunk - phase).  The windows' blocks then concatenate
+// to the whole table's gradient bit for bit.  Without a window the phase
+// pointer is null and the chunks are the unshifted ones.
+//
 // Bound on an H100: memory.  The call must write the dense d_table (R x D
 // of the table's dtype: 2.16 GB at DCN-v2's 33,762,816 x 16 fp32 table)
 // and read grad_out, the indices and the offsets once.  The zero fill is
@@ -147,9 +159,19 @@ struct Args {
   float* tail;             // [n_chunks, D]
   unsigned char* flags;    // [n_chunks]
   void* d_table;
+  const int32_t* phase;    // null, or the chunks' shift (see the header)
   int64_t N, R, D, n_chunks;
   int mean, lanes;
 };
+
+// Sorted entries [s, e) of chunk c (empty past the end).
+__device__ __forceinline__ void chunk_span(const Args& a, int64_t c,
+                                           int64_t* s, int64_t* e) {
+  const int64_t ph = a.phase ? (int64_t)__ldg(a.phase) : 0;
+  const int64_t lo = c * kChunk - ph, hi = lo + kChunk;
+  *s = lo < 0 ? 0 : lo;
+  *e = hi < a.N ? hi : a.N;
+}
 
 // Kernel 3: one chunk per group of `lanes` lanes (see the header).
 template <int V, bool BF16>
@@ -162,8 +184,12 @@ bag_bwd_chunks(const Args a) {
   const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
   const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   for (int64_t c = warp * groups + g; c < a.n_chunks; c += nwarps * groups) {
-    const int64_t s = c * kChunk;
-    const int64_t e = s + kChunk < a.N ? s + kChunk : a.N;
+    int64_t s, e;
+    chunk_span(a, c, &s, &e);
+    if (s >= e) {                          // past the end (a shifted grid)
+      if (gl == 0) a.flags[c] = 0;
+      continue;
+    }
     const int32_t first = __ldg(a.key + s);
     if (first >= a.R) {                    // only positions outside bags
       if (gl == 0) a.flags[c] = 0;
@@ -245,8 +271,9 @@ bag_bwd_combine(const Args a) {
   const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   for (int64_t c = warp * groups + g; c < a.n_chunks; c += nwarps * groups) {
     if (!(__ldg(a.flags + c) & 1)) continue;
-    const int64_t last = (c + 1) * kChunk - 1;   // < N: the run goes on
-    const int32_t row = __ldg(a.key + last);
+    int64_t s, e;
+    chunk_span(a, c, &s, &e);
+    const int32_t row = __ldg(a.key + e - 1);    // e < N: the run goes on
     for (int64_t col = (int64_t)gl * V; col < a.D; col += (int64_t)a.lanes * V) {
       float acc[V];
       load_vec<V>(a.tail + c * a.D + col, acc);
@@ -293,8 +320,9 @@ cudaError_t run(const Args& a, int64_t grid, cudaStream_t stream) {
 
 extern "C" int embedding_bag_backward_launch(
     const float* grad_out, int64_t B, int64_t D, const int32_t* offsets,
-    const int32_t* key, const int32_t* perm, int64_t N, int64_t R,
-    int64_t mean, int64_t out_bf16, int64_t vec, int64_t lanes,
+    const int32_t* key, const int32_t* perm, const int32_t* phase,
+    int64_t N, int64_t R, int64_t mean, int64_t out_bf16, int64_t vec,
+    int64_t lanes,
     int64_t grid, int32_t* bag_of, float* head, float* tail,
     unsigned char* flags, void* d_table, int64_t sms, cudaStream_t stream) {
   if (R <= 0 || D <= 0) return 0;
@@ -319,9 +347,11 @@ extern "C" int embedding_bag_backward_launch(
   bag_of_kernel<<<(unsigned)pgrid, 256, 0, stream>>>(offsets, B, N, bag_of);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // a shifted grid has one chunk more (head, tail and flags are sized by
+  // the wrapper's plan for it)
+  const int64_t n_chunks = (N + kChunk - 1) / kChunk + (phase ? 1 : 0);
   const Args a{grad_out, offsets, key, perm, bag_of, head, tail, flags,
-               d_table, N, R, D, (N + kChunk - 1) / kChunk, (int)mean,
-               (int)lanes};
+               d_table, phase, N, R, D, n_chunks, (int)mean, (int)lanes};
   if (out_bf16) {
     if (vec == 4) return (int)run<4, true>(a, grid, stream);
     if (vec == 2) return (int)run<2, true>(a, grid, stream);

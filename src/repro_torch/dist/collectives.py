@@ -18,7 +18,13 @@ LOGICAL axis name, resolves it through the active (or given)
 ``torch.distributed._functional_collectives`` over those dims on this
 rank's local tensor -- the counterpart of the reference's ``lax``
 collectives inside ``shard_map``.  An unmapped name is an exact no-op
-(the tensor itself comes back).
+(the tensor itself comes back).  :func:`dims_rules` names a tensor's own
+mesh dims for them, and :func:`placement_psum` sums over the dims a
+``DTensor``'s placements shard (the global-norm clip of a sharded
+gradient), and :func:`local_as` lays a ``DTensor``'s local tensor out
+anew (a gradient that arrives with other placements): the ``DTensor``
+reductions of a sharded step, done on local tensors by this family
+instead of ``DTensor``'s own collectives.
 
 A collective's result lies where its input lies; the transport is the
 backend's.  Over gloo a CUDA tensor is staged through host memory by the
@@ -308,6 +314,71 @@ def _reduce(x, op: str, logical: str, rules):
 def mesh_psum(x, logical: str, rules: Optional[_sh.Rules] = None):
     """Sum over the ranks of the logical axis."""
     return _reduce(x, "sum", logical, rules)
+
+
+def dims_rules(mesh, logical: str, dims) -> _sh.Rules:
+    """A table mapping ``logical`` to the mesh dims ``dims`` (indices into
+    ``mesh``'s dims) that hold more than one rank: the collectives above
+    over a tensor's own placements (a dim of one rank moves nothing and
+    is left out; with none left the name is unmapped, a no-op)."""
+    names = _sh.mesh_axis_names(mesh)
+    keep = tuple(names[d] for d in sorted(set(dims)) if mesh.size(d) > 1)
+    return _sh.Rules(mesh=mesh, table={logical: keep or None})
+
+
+def local_as(x, placements) -> torch.Tensor:
+    """The local tensor of ``DTensor`` ``x`` as ``placements`` lay it out
+    on ``x``'s mesh, moved by this family and never by ``DTensor``'s own
+    collectives.  Every mesh dim whose placement changes, and every dim
+    that shards a tensor dim one of those shards, is first made whole (a
+    ``Partial`` dim by a staged sum, a ``Shard(k)`` dim by a staged
+    all-gather along k, the inner mesh dims first); then each of them
+    that the target shards takes this rank's chunk (``torch.chunk``, the
+    outer dims first), as ``DTensor`` splits.  A dim of one rank moves
+    nothing; the shards must be even.  Used where a ``DTensor``
+    collective would send a CUDA tensor over gloo (:func:`staged_for`):
+    the sharded bag's backward, a sharded step's gradients."""
+    mesh = x.device_mesh
+    have, want = tuple(x.placements), tuple(placements)
+    live = [d for d in range(mesh.ndim) if mesh.size(d) > 1]
+    moved = {d for d in live if have[d] != want[d]}
+    dims = {p.dim for d in moved for p in (have[d], want[d]) if p.is_shard()}
+    moved |= {d for d in live if have[d].is_shard() and have[d].dim in dims}
+    t = x.to_local()
+    for d in sorted(moved, reverse=True):
+        rules = dims_rules(mesh, "dim", [d])
+        if have[d].is_partial():
+            t = mesh_psum(t, "dim", rules=rules)
+        elif have[d].is_shard():
+            t = mesh_all_gather(t, "dim", axis=have[d].dim, rules=rules)
+    coord = mesh.get_coordinate()
+    for d in sorted(moved):
+        if want[d].is_shard():
+            t = t.chunk(mesh.size(d), dim=want[d].dim)[coord[d]]
+        elif not want[d].is_replicate():
+            raise NotImplementedError(f"local_as: to {want[d]} on mesh dim "
+                                      f"{d}")
+    return t.contiguous()
+
+
+def staged_for(x) -> bool:
+    """Whether ``DTensor``'s own collectives on ``x`` would send a CUDA
+    tensor over gloo (ranks sharing a card), where they crash: the cases
+    the staged family (:func:`local_as`) takes instead."""
+    if not x.device.type == "cuda":
+        return False
+    mesh = x.device_mesh
+    return "gloo" in _backends([(mesh, d) for d in range(mesh.ndim)])
+
+
+def placement_psum(x, mesh, placements):
+    """Sum over the ranks of the mesh dims on which ``placements`` shard
+    a tensor (``Shard`` of any tensor dim): a local partial -- a sum of
+    squares of this rank's block, say -- becomes the whole tensor's on
+    every rank, staged through the host over gloo as :func:`mesh_psum`.
+    Replicated dims and dims of one rank send nothing."""
+    dims = [d for d, p in enumerate(placements) if p.is_shard()]
+    return mesh_psum(x, "shards", rules=dims_rules(mesh, "shards", dims))
 
 
 def mesh_pmean(x, logical: str, rules: Optional[_sh.Rules] = None):

@@ -205,6 +205,28 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements)
 
 
+def shard_block(n: int, mesh, dims) -> Tuple[int, int]:
+    """``(lo, hi)``: this rank's block of a tensor dim of ``n`` split by
+    ``Shard`` over the mesh dims ``dims`` (indices, in mesh order), as
+    ``DTensor`` splits it: ``torch.chunk`` over each dim in turn."""
+    coord = mesh.get_coordinate()
+    lo = 0
+    for d in dims:
+        s, c = mesh.size(d), coord[d]
+        full = -(-n // s)
+        start = min(c * full, n)
+        n = max(0, min(full, n - start))
+        lo += start
+    return lo, lo + n
+
+
+def local_block(n: int, mesh, placements, dim: int = 0) -> Tuple[int, int]:
+    """``(lo, hi)`` of tensor dim ``dim`` (of ``n``) that this rank holds
+    under ``placements`` -- a rank's rows of a table sharded by rows."""
+    return shard_block(n, mesh, [d for d, p in enumerate(placements)
+                                 if p.is_shard() and p.dim == dim])
+
+
 def is_spec_leaf(s: Any) -> bool:
     """Plain tuples are logical specs; NamedTuples (DecodeCache,
     optimizer states) are containers and stay traversable."""

@@ -43,10 +43,11 @@ _SIGNATURES = {
                                _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                _I64, _P],
     "embedding_bag_launch": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64,
-                             _I64, _I64, _I64, _I64, _I64, _P, _P],
-    "embedding_bag_backward_launch": [_P, _I64, _I64, _P, _P, _P, _I64,
+                             _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P,
+                             _P],
+    "embedding_bag_backward_launch": [_P, _I64, _I64, _P, _P, _P, _P,
                                       _I64, _I64, _I64, _I64, _I64, _I64,
-                                      _P, _P, _P, _P, _P, _I64, _P],
+                                      _I64, _P, _P, _P, _P, _P, _I64, _P],
 }
 
 _state = {"lib": None, "build_s": None}

@@ -227,7 +227,19 @@ def paged_attention_split_ref(q, k_heap, v_heap, page_table, lengths, S,
                        0.0)
 
 
-def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
+def _row_window(name, num_rows: int, row_lo: int, row_hi):
+    """``(lo, hi)`` of a row window of a ``num_rows``-row table (the
+    whole table by default), checked."""
+    hi = num_rows if row_hi is None else int(row_hi)
+    lo = int(row_lo)
+    if not 0 <= lo <= hi <= num_rows:
+        raise ValueError(f"{name}: row window [{lo}, {hi}) is not inside "
+                         f"the table's {num_rows} rows")
+    return lo, hi
+
+
+def embedding_bag_ref(table, indices, offsets, mode: str = "sum", *,
+                      row_lo: int = 0, row_hi=None, num_rows=None):
     """CSR embedding bag: ``out[b]`` sums (``mode="mean"``: averages,
     an empty bag dividing by 1) the table rows
     ``indices[offsets[b]:offsets[b+1]]``.
@@ -241,18 +253,40 @@ def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
     would read out of range).  Positions outside ``[offsets[0],
     offsets[B])`` belong to no bag.  A single-row bag equals
     ``table[idx].float()`` exactly.
+
+    A row window: ``table`` holds rows ``[row_lo, row_hi)`` of a table
+    of ``num_rows`` rows (by default the whole table: ``row_lo`` 0,
+    ``row_hi`` and ``num_rows`` the rows ``table`` has).  Ids clip into
+    the whole table, and a clipped id outside the window adds nothing;
+    the mean still divides by the bag's whole length.  Each bag is then
+    the in-order sum of its rows that lie in the window, so the windows'
+    bags over a split of the table sum to the whole bag (exactly for
+    bags of one row); the whole window is today's call, bit for bit.
     """
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', "
                          f"got {mode!r}")
     B = offsets.shape[0] - 1
-    R, D = table.shape
+    n_local, D = table.shape
+    if num_rows is None:
+        num_rows = int(row_lo) + n_local
+    lo, hi = _row_window("embedding_bag", num_rows, row_lo,
+                         int(row_lo) + n_local if row_hi is None else row_hi)
+    if hi - lo != n_local:
+        raise ValueError(f"embedding_bag: a window of {hi - lo} rows for a "
+                         f"table of {n_local}")
+    R = num_rows
     dev = table.device
     pos = torch.arange(indices.shape[0], device=dev)
     ends = offsets[1:].long()
     seg = torch.searchsorted(ends, pos, right=True)
     seg = torch.where(pos >= offsets[0].long(), seg, B)   # B: no bag
-    rows = table[indices.long().clamp(0, R - 1)].float()
+    r = indices.long().clamp(0, R - 1)
+    if (lo, hi) != (0, R):
+        inside = (r >= lo) & (r < hi)
+        seg = torch.where(inside, seg, B)
+        r = torch.where(inside, r - lo, 0)
+    rows = table[r].float()
     out = torch.zeros((B + 1, D), dtype=torch.float32, device=dev)
     out.index_add_(0, seg, rows)
     out = out[:B]
@@ -263,7 +297,8 @@ def embedding_bag_ref(table, indices, offsets, mode: str = "sum"):
 
 
 def embedding_bag_backward_ref(grad_out, indices, offsets, mode: str,
-                               num_rows: int, dtype):
+                               num_rows: int, dtype, *, row_lo: int = 0,
+                               row_hi=None):
     """Gradient of :func:`embedding_bag_ref` with respect to its table:
     position j of bag b adds ``grad_out[b]`` (``mode="mean"``: divided by
     max(len_b, 1)) to row ``clip(indices[j], 0, R-1)``; positions outside
@@ -273,10 +308,17 @@ def embedding_bag_backward_ref(grad_out, indices, offsets, mode: str,
     ``[num_rows, D]`` in ``dtype``, dense (untouched rows zero), summed
     in fp32 in position order (``index_add_`` into zeros; on CUDA its
     atomics take any order) and cast once.  A row with one contribution
-    is ``0.0 + g``: the kernel's bits."""
+    is ``0.0 + g``: the kernel's bits.
+
+    A row window ``[row_lo, row_hi)`` (the whole table by default) gives
+    those rows of the gradient alone, ``[row_hi - row_lo, D]``: ids
+    still clip into ``[0, num_rows - 1]``, and a position whose row lies
+    outside the window adds nothing, so the windows of a split of the
+    table concatenate to the whole gradient bit for bit."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag_backward: mode must be 'sum' or "
                          f"'mean', got {mode!r}")
+    lo, hi = _row_window("embedding_bag_backward", num_rows, row_lo, row_hi)
     B = offsets.shape[0] - 1
     dev = grad_out.device
     pos = torch.arange(indices.shape[0], device=dev)
@@ -288,7 +330,10 @@ def embedding_bag_backward_ref(grad_out, indices, offsets, mode: str,
         cnt = (ends - offsets[:-1].long()).clamp(min=1)
         g = g / cnt.float()[:, None]
     rows = indices.long().clamp(0, num_rows - 1)
-    out = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float32,
+    if (lo, hi) != (0, num_rows):
+        inside = inside & (rows >= lo) & (rows < hi)
+        rows = rows - lo
+    out = torch.zeros((hi - lo, grad_out.shape[1]), dtype=torch.float32,
                       device=dev)
     out.index_add_(0, rows[inside], g[seg[inside]])
     return out.to(dtype)

@@ -93,7 +93,6 @@ from repro_torch.dist.sharding import (Rules, call_resharded,
                                        mesh_shape, mesh_size,
                                        refused_for_placements,
                                        tree_shardings, use_rules)
-from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import roofline as RL
 from repro_torch.models import transformer as T
@@ -375,12 +374,12 @@ class _PlainOps(TorchDispatchMode):
 
 def _register_rules() -> None:
     """``DTensor`` rules for the ops of the traced steps that have none:
-    the bag's shape-only ops (``ops.register_meta_sharding``) and the
-    MoE dispatch's row-wise ``searchsorted`` (rows sharded alike, or
-    everything replicated)."""
+    the MoE dispatch's row-wise ``searchsorted`` (rows sharded alike, or
+    everything replicated).  The bag's shape-only ops need none: a
+    ``DTensor`` table takes ``ops.embedding_bag``'s sharded route, which
+    runs them on local tensors."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
-    ops.register_meta_sharding()
     R = Replicate()
 
     @register_sharding(torch.ops.aten.searchsorted.Tensor)

@@ -102,14 +102,21 @@ def bag_bounds(offsets, n: int):
     return lo, torch.maximum(lo, raw[1:].clamp(max=n))
 
 
-def in_order_bags(table, indices, offsets, mode: str = "sum"):
+def in_order_bags(table, indices, offsets, mode: str = "sum", *,
+                  row_lo: int = 0, row_hi=None, num_rows=None):
     """The kernel's contract in its own summation order: each column of
     bag b starts from the bag's first row and adds the others one at a
     time in bag order, in fp32; the mean divides by ``max(count, 1)``;
     ids clip into ``[0, R-1]`` and offsets clamp as :func:`bag_bounds`.
     -> fp32 [B, D], bit-identical to the CUDA kernel (the plain version
-    ``ref.embedding_bag_ref`` sums in another order)."""
-    R, D = table.shape
+    ``ref.embedding_bag_ref`` sums in another order).  With a row window
+    ``table`` holds rows ``[row_lo, row_hi)`` of a ``num_rows``-row
+    table (by default the whole table), and a clipped id outside the
+    window is a zero row in its place in the order, as in the kernel."""
+    n_local, D = table.shape
+    lo_w = int(row_lo)
+    hi_w = lo_w + n_local if row_hi is None else int(row_hi)
+    R = hi_w if num_rows is None else int(num_rows)
     B = offsets.shape[0] - 1
     n = indices.shape[0]
     out = torch.zeros((B, D), dtype=torch.float32, device=table.device)
@@ -117,9 +124,12 @@ def in_order_bags(table, indices, offsets, mode: str = "sum"):
     lens = hi - lo
     longest = int(lens.max()) if B else 0
     ids = indices.long().clamp(0, R - 1)
+    inside = (ids >= lo_w) & (ids < hi_w)
+    ids = torch.where(inside, ids - lo_w, 0)
     for r in range(longest):
         b = torch.nonzero(lens > r)[:, 0]
-        x = table[ids[lo[b] + r]].float()
+        at = lo[b] + r
+        x = torch.where(inside[at, None], table[ids[at]].float(), 0.0)
         out[b] = x if r == 0 else out[b] + x
     if mode == "mean":
         out = out / lens.clamp(min=1).float()[:, None]

@@ -14,13 +14,18 @@ the values came from that dtype).
 The reference's sharding annotations are kept: the ``*_param_specs``
 helpers (the third entry of :data:`FORWARDS`) give each leaf's logical
 spec, and the forwards call ``dist.sharding.constrain`` where the
-reference does (a no-op on one device). The forwards train as they are:
-``ops.embedding_bag`` is differentiable in the table (on the card
-through the ``embedding_bag_backward`` kernel), and :func:`bce_loss` is
-the reference's. DIEN's two ``lax.scan``s are Python loops over T with
-the same masking. JAX promotes a mixed-dtype product (fp32 activations @
-bf16 weights -> fp32) where torch raises, so every product here casts
-both operands to the promoted dtype (:func:`_dot`).
+reference does (a no-op on one device). On a mesh of ranks the tables
+are ``DTensor``s sharded by rows as those specs say, and every table
+read passes the ``DTensor`` to ``ops.embedding_bag`` unchanged (its
+row-sharded route); ``init_*(..., table_rows=(lo, hi))`` makes one
+rank's block of rows of the tables from the same seeded stream. The
+forwards train as they are: ``ops.embedding_bag`` is differentiable in
+the table (on the card through the ``embedding_bag_backward`` kernel),
+and :func:`bce_loss` is the reference's. DIEN's two ``lax.scan``s are
+Python loops over T with the same masking. JAX promotes a mixed-dtype
+product (fp32 activations @ bf16 weights -> fp32) where torch raises, so
+every product here casts both operands to the promoted dtype
+(:func:`_dot`).
 """
 from __future__ import annotations
 
@@ -54,22 +59,35 @@ def padded_rows(total_rows: int) -> int:
 
 
 def init_table(gen: torch.Generator, total_rows: int, dim: int,
-               dtype, device=None) -> torch.Tensor:
+               dtype, device=None, *, rows=None) -> torch.Tensor:
     """Normal(0, 0.01) rows, ``padded_rows(total_rows)`` of them, drawn in
     fp32 in chunks of 2**26 values and cast chunk by chunk, so no fp32
     copy of a narrower table ever exists (DLRM-MLPerf's bf16 table is
-    44.8 GiB).  On ``meta`` the table is a shape alone."""
+    44.8 GiB).  On ``meta`` the table is a shape alone.
+
+    ``rows=(lo, hi)`` keeps rows ``[lo, hi)`` of the padded table alone
+    (one rank's block of a table sharded by rows): every chunk is still
+    drawn, in order, and its part in the window kept, so the block holds
+    the whole table's rows bit for bit, the generator ends where the
+    whole draw leaves it (the parameters drawn after the table are the
+    same), and no rank ever holds the whole table."""
     dev = L.draw_device(gen, device)
-    rows = padded_rows(total_rows)
-    out = torch.empty((rows, dim), dtype=dtype, device=dev)
+    R = padded_rows(total_rows)
+    lo, hi = (0, R) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= lo <= hi <= R:
+        raise ValueError(f"init_table: rows [{lo}, {hi}) outside the "
+                         f"padded table's {R}")
+    out = torch.empty((hi - lo, dim), dtype=dtype, device=dev)
     if dev.type == "meta":
         return out
     step = max(1, (1 << 26) // max(dim, 1))
-    for s in range(0, rows, step):
-        n = min(step, rows - s)
-        out[s:s + n] = torch.randn((n, dim), generator=gen,
-                                   dtype=torch.float32,
-                                   device=dev).mul_(0.01)
+    for s in range(0, R, step):
+        n = min(step, R - s)
+        chunk = torch.randn((n, dim), generator=gen, dtype=torch.float32,
+                            device=dev).mul_(0.01)
+        a, b = max(s, lo), min(s + n, hi)
+        if a < b:
+            out[a - lo:b - lo] = chunk[a - s:b - s]
     return out
 
 
@@ -165,13 +183,14 @@ def _dtype(name: str) -> torch.dtype:
 # DLRM (dot interaction)  [arXiv:1906.00091]
 # ---------------------------------------------------------------------------
 def init_dlrm(cfg: RecsysConfig, gen: torch.Generator,
-              device=None) -> dict:
+              device=None, table_rows=None) -> dict:
     dt = _dtype(cfg.param_dtype)
     n_f = cfg.n_sparse + 1
     n_inter = n_f * (n_f - 1) // 2
     top_in = cfg.bot_mlp[-1] + n_inter
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, device),
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, device,
+                            rows=table_rows),
         "bot": _mlp_init(gen, cfg.bot_mlp, dt, device),
         "top": _mlp_init(gen, (top_in, *cfg.top_mlp), dt, device),
     }
@@ -205,12 +224,14 @@ def dlrm_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
 # ---------------------------------------------------------------------------
 # DCN-v2 (cross network)  [arXiv:2008.13535]
 # ---------------------------------------------------------------------------
-def init_dcn(cfg: RecsysConfig, gen: torch.Generator, device=None) -> dict:
+def init_dcn(cfg: RecsysConfig, gen: torch.Generator, device=None,
+             table_rows=None) -> dict:
     dt = _dtype(cfg.param_dtype)
     dev = L.draw_device(gen, device)
     d0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev),
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev,
+                            rows=table_rows),
         "cross": [{"w": L.dense_init(gen, (d0, d0), dt, device=dev),
                    "b": torch.zeros((d0,), dtype=dt, device=dev)}
                   for _ in range(cfg.n_cross_layers)],
@@ -247,19 +268,21 @@ def dcn_forward(params, batch: RecsysBatch, cfg: RecsysConfig,
 # xDeepFM (Compressed Interaction Network)  [arXiv:1803.05170]
 # ---------------------------------------------------------------------------
 def init_xdeepfm(cfg: RecsysConfig, gen: torch.Generator,
-                 device=None) -> dict:
+                 device=None, table_rows=None) -> dict:
     dt = _dtype(cfg.param_dtype)
     dev = L.draw_device(gen, device)
     m = cfg.n_sparse
     cin = []
     h_prev = m
-    table = init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev)
+    table = init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev,
+                       rows=table_rows)
     for h in cfg.cin_layers:
         cin.append(L.dense_init(gen, (h_prev, m, h), dt, device=dev))
         h_prev = h
     return {
         "table": table,
-        "linear": init_table(gen, cfg.total_rows, 1, dt, dev),
+        "linear": init_table(gen, cfg.total_rows, 1, dt, dev,
+                             rows=table_rows),
         "cin": cin,
         "dnn": _mlp_init(gen, (m * cfg.embed_dim, *cfg.top_mlp), dt, dev),
         "head": L.dense_init(
@@ -329,12 +352,14 @@ def _gru_cell(p, h, x, a=None):
     return (1.0 - u) * h + u * cand
 
 
-def init_dien(cfg: RecsysConfig, gen: torch.Generator, device=None) -> dict:
+def init_dien(cfg: RecsysConfig, gen: torch.Generator, device=None,
+              table_rows=None) -> dict:
     dt = _dtype(cfg.param_dtype)
     dev = L.draw_device(gen, device)
     d_e = cfg.embed_dim * 2  # item + category embedding
     return {
-        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev),
+        "table": init_table(gen, cfg.total_rows, cfg.embed_dim, dt, dev,
+                            rows=table_rows),
         "gru": _gru_init(gen, d_e, cfg.gru_dim, dt, dev),
         "augru": _gru_init(gen, d_e, cfg.gru_dim, dt, dev),
         "att": L.dense_init(gen, (cfg.gru_dim + d_e, 1), dt, device=dev),

@@ -111,7 +111,39 @@ class AdamW:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in ``jax.tree`` order) of each
-    leaf's fp32 sum of squares."""
-    sq = [torch.sum(torch.square(g.to(torch.float32)))
-          for g in T.leaves(tree)]
-    return torch.sqrt(sum(sq[1:], sq[0]))
+    leaf's fp32 sum of squares.
+
+    A tree of ``DTensor`` leaves (a sharded step's gradients) is summed
+    on local tensors: each leaf's local sum of squares (a partial leaf
+    first made whole by ``dist.collectives.local_as``), the leaves
+    grouped by the mesh dims their placements shard, and each group's
+    sum reduced once over those dims by
+    ``dist.collectives.placement_psum`` (staged through the host over
+    gloo: no ``DTensor`` collective runs).  The norm comes back as a
+    replicated ``DTensor`` scalar on the leaves' mesh, equal to the
+    plain tree's within fp32 rounding of the order of the sums."""
+    leaves = T.leaves(tree)
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(g, DTensor) for g in leaves):
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
+        return torch.sqrt(sum(sq[1:], sq[0]))
+    from torch.distributed.tensor import Replicate
+    from repro_torch.dist.collectives import local_as, placement_psum
+    groups = {}                       # shard dims -> (placements, [sums])
+    mesh = None
+    for g in leaves:
+        if not isinstance(g, DTensor):
+            raise TypeError("global_norm: a tree mixes DTensor and plain "
+                            "leaves")
+        mesh = g.device_mesh
+        pl = tuple(Replicate() if p.is_partial() else p
+                   for p in g.placements)
+        key = tuple(d for d, p in enumerate(pl) if p.is_shard())
+        local = torch.sum(torch.square(local_as(g, pl).to(torch.float32)))
+        groups.setdefault(key, (pl, []))[1].append(local)
+    total = None
+    for placements, sums in groups.values():
+        part = placement_psum(sum(sums[1:], sums[0]), mesh, placements)
+        total = part if total is None else total + part
+    return DTensor.from_local(torch.sqrt(total), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)

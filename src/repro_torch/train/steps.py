@@ -46,12 +46,21 @@ def _value_and_grad(loss_fn, params, batch):
 
 def _laid_out_as(g, p):
     """A ``DTensor`` gradient redistributed to its parameter's placements
-    (the gradient reduction over the data dims that a sharded step
-    needs); a plain tensor as it is."""
+    (the gradient reduction over the data dims that a sharded step needs,
+    and over any dim an op's strategy split the batch on); where
+    ``DTensor``'s collectives would send a CUDA tensor over gloo (ranks
+    sharing a card), by the staged family instead
+    (``dist.collectives.local_as``); a plain tensor as it is."""
     placements = getattr(p, "placements", None)
     if placements is None or tuple(g.placements) == tuple(placements):
         return g
-    return g.redistribute(p.device_mesh, placements)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import collectives as C
+    if not C.staged_for(g):
+        return g.redistribute(p.device_mesh, placements)
+    return DTensor.from_local(C.local_as(g, placements), p.device_mesh,
+                              placements, run_check=False, shape=g.shape,
+                              stride=g.stride())
 
 
 def _accumulate_grads(loss_fn, params, batches, n_micro: int,
@@ -250,12 +259,18 @@ def make_recsys_retrieval_step(cfg: RecsysConfig, device="cuda") -> Callable:
 # Family-level dispatch
 # ---------------------------------------------------------------------------
 def init_params_for(arch_entry, cfg, seed: int = 0, shape_spec=None,
-                    device="cuda"):
+                    device="cuda", table_rows=None):
     """Random parameters of ``cfg`` (the reference's shapes, dtypes and
     scales; its ``jax.random`` stream is not reproduced, so tests carry
     a reference tree across with ``core.convert``).  SchNet's input
-    width is ``shape_spec``'s ``d_feat`` (else ``cfg.d_feat_default``)."""
+    width is ``shape_spec``'s ``d_feat`` (else ``cfg.d_feat_default``).
+    A recsys tree with ``table_rows=(lo, hi)`` holds those rows of its
+    tables alone (one rank's block; ``models.recsys.init_table``), every
+    other leaf the whole tree's."""
     fam = arch_entry.family
+    if table_rows is not None and fam in ("lm", "gnn"):
+        raise ValueError(f"init_params_for: table_rows is for recsys "
+                         f"tables, not the {fam} family")
     if fam == "lm":
         return T.init_lm(cfg, seed=seed, device=device)
     gen = L.make_generator(device, seed)
@@ -264,7 +279,7 @@ def init_params_for(arch_entry, cfg, seed: int = 0, shape_spec=None,
                   if shape_spec is not None else cfg.d_feat_default)
         return G.init_schnet(cfg, gen, d_feat=d_feat, device=device)
     init = R.FORWARDS[cfg.interaction][0]
-    return init(cfg, gen, device)
+    return init(cfg, gen, device, table_rows=table_rows)
 
 
 def param_specs_for(arch_entry, cfg, mesh_model_size: int = 16):

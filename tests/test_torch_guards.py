@@ -249,6 +249,43 @@ def test_ranked_path_picks_no_backend_and_no_device_by_itself():
                      "src/repro_torch/launch/dryrun.py"]
 
 
+def test_ranked_recsys_slice_is_scanned():
+    """The row-sharded bag is in: every module it touched is under the
+    import scan above, and the ops docstring no longer says a sharded
+    table on a real device reaches the kernel's wrapper as it is."""
+    rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/kernels/ref.py",
+                 "src/repro_torch/kernels/embedding_bag.py",
+                 "src/repro_torch/dist/collectives.py",
+                 "src/repro_torch/train/optimizer.py",
+                 "src/repro_torch/train/steps.py",
+                 "src/repro_torch/models/recsys.py",
+                 "src/repro_torch/launch/time_embedding_bag.py",
+                 "chip_smoke.py"):
+        assert must in rel, must
+    from repro_torch.kernels import ops
+    assert "still reaches the kernel's wrapper" not in ops.__doc__
+
+
+def test_cuda_dtensor_table_without_a_card_raises(monkeypatch):
+    """A row-sharded table whose tensors are taken for the card's goes to
+    the kernel's wrapper, which raises without CUDA: the sharded route
+    never drops to the plain version by itself."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.dist import collectives as tcoll
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "_on_cuda", lambda name, t: True)
+    with tcoll.fake_world(1):
+        mesh = tmesh.make_mesh((1,), ("model",), "cpu")
+        table = DTensor.from_local(torch.zeros(8, 4), mesh, [Shard(0)],
+                                   run_check=False)
+        idx = torch.zeros(3, dtype=torch.int32)
+        off = torch.tensor([0, 1, 3], dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.embedding_bag(table, idx, off)
+
+
 def test_fake_backend_imported_in_one_module():
     """``torch.testing._internal`` (private: the fake process group) is
     imported by ``dist/collectives.py`` alone."""
@@ -445,6 +482,59 @@ def test_bag_gradient_on_the_card_matches_autograd():
             torch.as_tensor(off, device="cuda"), mode, R, torch.bfloat16)
         assert bf.dtype == torch.bfloat16
         assert torch.equal(bf.cpu()[single], want.to(torch.bfloat16)[single])
+
+
+@pytest.mark.cuda
+def test_windowed_bag_kernels_match_plain_versions_on_the_card():
+    """The row window (a table sharded by rows): at S = 2 and 4 windows,
+    fp32 and bf16, sum and mean, ids clipped at both ends, empty bags and
+    positions outside [offsets[0], offsets[B]): each window's forward
+    kernel bit-equal to the windowed in-order sum (and to the windowed
+    plain version on single-row bags), the windows summing to the whole
+    kernel's bags within 1e-5; each window's backward kernel, the blocks
+    concatenated, bit-equal to the whole table's backward kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+    from repro_torch.launch import time_embedding_bag as tbag
+    rng = np.random.default_rng(9)
+    R, D, B = 4096, 16, 300
+    for dt in (torch.float32, torch.bfloat16):
+        table = torch.randn(R, D).to(dt).cuda()
+        for lens in (rng.integers(0, 40, B), np.ones(B, np.int64)):
+            off = np.concatenate([[3], 3 + np.cumsum(lens)]).astype(np.int32)
+            idx = (rng.zipf(1.2, int(off[-1]) + 4) % (R + 40) - 20
+                   ).astype(np.int32)
+            idx = torch.as_tensor(idx).cuda()
+            off = torch.as_tensor(off).cuda()
+            g = torch.randn(B, D).cuda()
+            for mode in ("sum", "mean"):
+                whole = eb.embedding_bag(table, idx, off, mode)
+                bwd = eb.embedding_bag_backward(g, idx, off, mode, R, dt)
+                for S in (2, 4):
+                    parts, blocks = [], []
+                    for k in range(S):
+                        lo, hi = k * R // S, (k + 1) * R // S
+                        got = eb.embedding_bag(table[lo:hi], idx, off, mode,
+                                               row_lo=lo, row_hi=hi,
+                                               num_rows=R)
+                        assert torch.equal(got, tbag.in_order_bags(
+                            table[lo:hi], idx, off, mode, row_lo=lo,
+                            row_hi=hi, num_rows=R))
+                        if (lens == 1).all():
+                            assert torch.equal(got, ref.embedding_bag_ref(
+                                table[lo:hi], idx, off, mode, row_lo=lo,
+                                row_hi=hi, num_rows=R))
+                        parts.append(got)
+                        blocks.append(eb.embedding_bag_backward(
+                            g, idx, off, mode, R, dt, row_lo=lo, row_hi=hi))
+                    total = sum(parts[1:], parts[0])
+                    if (lens == 1).all():
+                        assert torch.equal(total, whole)
+                    torch.testing.assert_close(total, whole, rtol=1e-5,
+                                               atol=1e-5)
+                    assert torch.equal(torch.cat(blocks), bwd)
 
 
 @pytest.mark.cuda
