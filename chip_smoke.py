@@ -189,9 +189,13 @@ Phases, in order (any failure raises and exits non-zero):
      version at DCN-v2's train_batch shapes (65,536 x 26 single-row bags
      into the 33,762,816 x 16 fp32 table), on a Zipf(1.1) id stream, on
      mean bags with empty ones, clipped ids and positions outside every
-     bag, and on a bf16 table: each call twice and bit-equal, rows of
-     one contribution bit-equal to the plain version, the rest within
-     1e-5 of their summed magnitudes; its time warm, flushed and by the
+     bag, on a bf16 table and on one row of 110,000 contributions: each
+     call twice and bit-equal, bit-equal to ``in_order_backward`` (the
+     kernel's order in plain torch), rows of one contribution bit-equal
+     to the plain version, the rest within 1e-5 of their summed
+     magnitudes; small calls at every lane width (D 1, 2, 10, 18 and 16
+     at an odd address), whole and in windows, bit-equal to the in-order
+     sum; its time warm, flushed and by the
      profiler beside the plain version, ``zeros + index_add_`` and the
      bound; (b) exact restart: ``launch/train.py`` (TinyLlama's smoke
      preset) crashed at step 9 and resumed, in a subprocess (the
@@ -311,6 +315,7 @@ from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
                                         profiled_ms, profiled_total_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
+from repro_torch.launch import time_embedding_bag_backward as tbwd  # noqa: E402,E501
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
 from repro_torch.launch import time_segment_intersect as tsg  # noqa: E402
 from repro_torch.data import graph_sampler as gsamp  # noqa: E402
@@ -4039,8 +4044,10 @@ def windowed_bags(seed: int) -> float:
     to the windowed in-order sum (and, on single-row bags, to the
     windowed plain version), the windows' sum within ``BAG_ERR`` of the
     whole kernel's bags (bit-equal on single-row bags); each window's
-    backward block, concatenated, bit-equal to the whole table's
-    backward.  Returns the max |sum of windows - whole|."""
+    backward block bit-equal to the windowed in-order sum
+    (``tbwd.in_order_backward``), and the blocks, concatenated, bit-equal
+    to the whole table's backward (itself bit-equal to the in-order
+    sum).  Returns the max |sum of windows - whole|."""
     rng = np.random.default_rng(seed)
     R, err, cases = 100_000, 0.0, 0
     for D in (16, 128):
@@ -4059,6 +4066,12 @@ def windowed_bags(seed: int) -> float:
                     whole = ops.embedding_bag(table, idx, off, mode)
                     whole_g = ops.embedding_bag_backward(g, idx, off, mode,
                                                          R, dt)
+                    if not torch.equal(_bits(whole_g), _bits(
+                            tbwd.in_order_backward(g, idx, off, mode, R,
+                                                   dt))):
+                        raise AssertionError(
+                            f"D={D} {dt} {mode}: the whole backward differs "
+                            f"from the in-order sum")
                     for S in (2, 4):
                         parts, blocks = [], []
                         for k in range(S):
@@ -4081,6 +4094,13 @@ def windowed_bags(seed: int) -> float:
                             blocks.append(keb.embedding_bag_backward(
                                 g, idx, off, mode, R, dt, row_lo=lo,
                                 row_hi=hi))
+                            if not torch.equal(_bits(blocks[-1]), _bits(
+                                    tbwd.in_order_backward(
+                                        g, idx, off, mode, R, dt, row_lo=lo,
+                                        row_hi=hi))):
+                                raise AssertionError(
+                                    f"{name}: the backward block differs "
+                                    f"from the windowed in-order sum")
                         total = sum(parts[1:], parts[0])
                         d = float((total - whole).abs().max())
                         scale = float(whole.abs().max())
@@ -4103,7 +4123,8 @@ def windowed_bags(seed: int) -> float:
         f"window bit-equal to the windowed in-order sum, single-row windows "
         f"to the windowed plain version; windows sum to the whole bags "
         f"within {err:.3g} (single-row bags bit-equal); backward windows "
-        f"concatenated bit-equal to the whole backward")
+        f"concatenated bit-equal to the whole backward, each block and the "
+        f"whole backward bit-equal to the in-order sum")
     return err
 
 
@@ -5069,60 +5090,10 @@ def _bit_equal(a, b) -> bool:
                for x, y in zip(ttree.leaves(a), ttree.leaves(b)))
 
 
-def bwd_case(seed: int, name: str, R: int, D: int, dtype, lens, ids,
-             mode: str, lo: int = 0, hi: int = 0):
-    """(name, grad_out, indices, offsets, mode, R, dtype) on the card;
-    ``ids(n)`` draws the n indices."""
-    off = np.zeros(len(lens) + 1, np.int64)
-    off[1:] = np.cumsum(lens)
-    off += lo
-    n = int(off[-1]) + hi
-    g = torch.randn(len(lens), D, device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(seed))
-    return (name, g, torch.as_tensor(ids(n), dtype=torch.int32,
-                                     device="cuda"),
-            torch.as_tensor(off, dtype=torch.int32, device="cuda"), mode, R,
-            dtype)
-
-
-def bwd_cases(seed: int) -> list:
-    """DCN-v2 at train_batch (65,536 x 26 single-row bags into the
-    33,762,816 x 16 fp32 table, uniform ids per field: the path's call),
-    the same bags over a duplicate-heavy Zipf(1.1) id stream, mean bags
-    with empty ones, ids out of range and positions outside every bag,
-    and a bf16 table of pooled mean bags."""
-    rng = np.random.default_rng(seed)
-    cfg = registry.get("dcn-v2").config
-    R = rmodels.padded_rows(cfg.total_rows)
-    B = registry.get_shape("dcn-v2", "train_batch").global_batch
-    foff = np.zeros(cfg.n_sparse, np.int64)
-    foff[1:] = np.cumsum(cfg.vocab_sizes)[:-1]
-
-    def path_ids(n):
-        ids = np.stack([rng.integers(0, v, B) for v in cfg.vocab_sizes], 1)
-        return (ids + foff).reshape(-1)
-    nb = B * cfg.n_sparse
-    ones = np.ones(nb, np.int64)
-    mixed = rng.integers(0, 9, 65536)
-    mixed[rng.random(65536) < 0.2] = 0
-    return [
-        bwd_case(seed, "dcn-v2 train_batch", R, 16, torch.float32, ones,
-                 path_ids, "sum"),
-        bwd_case(seed + 1, "zipf(1.1) ids", R, 16, torch.float32, ones,
-                 lambda n: rng.zipf(1.1, n) % R, "sum"),
-        bwd_case(seed + 2, "mean, empty bags, clipped ids, outside positions", R,
-                 16, torch.float32, mixed,
-                 lambda n: rng.integers(-100, R + 100, n), "mean",
-                 lo=1000, hi=5000),
-        bwd_case(seed + 3, "bf16 table, pooled mean bags", 1 << 20, 128,
-                 torch.bfloat16, rng.integers(0, 41, 4096),
-                 lambda n: rng.zipf(1.05, n) % (1 << 20), "mean"),
-    ]
-
-
 def check_bwd(name, g, idx, off, mode, R, dtype) -> float:
-    """The kernel twice (bit-equal run to run) against its plain version
-    on the card: rows of one contribution bit-equal, untouched rows zero,
+    """The kernel twice (bit-equal run to run) against its order in plain
+    torch (``tbwd.in_order_backward``: bit-equal) and its plain version on
+    the card: rows of one contribution bit-equal, untouched rows zero,
     the rest within ``BWD_ERR`` of the row's summed |contributions| (a
     bf16 table: plus one bf16 ulp of the plain value).  Returns the max
     absolute difference from the plain version."""
@@ -5134,6 +5105,9 @@ def check_bwd(name, g, idx, off, mode, R, dtype) -> float:
     if not torch.equal(_bits(got), _bits(again)):
         raise AssertionError(f"{name}: two calls differ")
     del again
+    if not torch.equal(_bits(got), _bits(tbwd.in_order_backward(
+            g, idx, off, mode, R, dtype))):
+        raise AssertionError(f"{name}: differs from the in-order sum")
     want = ref.embedding_bag_backward_ref(g, idx, off, mode, R, dtype)
     pos = torch.arange(idx.numel(), device="cuda")
     inside = (pos >= off[0]) & (pos < off[-1])
@@ -5160,8 +5134,40 @@ def check_bwd(name, g, idx, off, mode, R, dtype) -> float:
         f"positions, {int(one.sum())} rows of one contribution bit-equal, "
         f"{int(many.sum())} of many (at most {int(cnt.max())}): max abs err "
         f"{err:.3g}, {rel:.3g} of the summed magnitudes; bit-equal run to "
-        f"run")
+        f"run and to the in-order sum")
     return err
+
+
+def check_bwd_widths(seed: int) -> int:
+    """The kernel at every lane width and row layout the launch takes
+    (``tbwd.width_cases``: D 1, 2, 10, 18 and 16 at an odd address, fp32
+    and bf16, sum and mean, whole and in three windows, a run over 68
+    chunks): each call twice, bit-equal run to run and to
+    ``tbwd.in_order_backward``; the windows concatenated bit-equal to the
+    whole.  Returns the calls checked."""
+    whole = {}
+    cases = tbwd.width_cases(seed)
+    for name, g, idx, off, mode, R, dtype, lo, hi in cases:
+        got = ops.embedding_bag_backward(g, idx, off, mode, R, dtype,
+                                         row_lo=lo, row_hi=hi)
+        again = ops.embedding_bag_backward(g, idx, off, mode, R, dtype,
+                                           row_lo=lo, row_hi=hi)
+        if not torch.equal(_bits(got), _bits(again)) or not torch.equal(
+                _bits(got), _bits(tbwd.in_order_backward(
+                    g, idx, off, mode, R, dtype, row_lo=lo, row_hi=hi))):
+            raise AssertionError(f"embedding_bag_backward {name}: not "
+                                 f"bit-equal to the in-order sum")
+        whole.setdefault((g.shape[1], dtype, mode), []).append(got)
+    for key, parts in whole.items():
+        if not torch.equal(_bits(torch.cat(parts[1:])), _bits(parts[0])):
+            raise AssertionError(f"embedding_bag_backward {key}: windows "
+                                 f"differ from the whole")
+    torch.cuda.synchronize()
+    log(f"embedding_bag_backward at every lane width: {len(cases)} calls "
+        f"(D 1, 2, 10, 18, 16 at an odd address; fp32 and bf16; sum and "
+        f"mean; whole and three windows) bit-equal to the in-order sum, "
+        f"run to run, windows to the whole")
+    return len(cases)
 
 
 def bwd_timing(case) -> dict:
@@ -5508,8 +5514,9 @@ def phase_train(seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cases = bwd_cases(seed)
+    cases = tbwd.bwd_cases(seed)
     err = max(check_bwd(*c) for c in cases)
+    check_bwd_widths(seed)
     timing = bwd_timing(cases[0])
     del cases
     _lm_free()

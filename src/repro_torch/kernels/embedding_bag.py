@@ -149,7 +149,6 @@ embedding_bag.launches = 0
 
 
 BWD_CHUNK = 32         # sorted entries per chunk (kChunk in the source)
-BWD_WARPS = 8          # warps per CTA of its chunk kernels
 
 
 @dataclass(frozen=True)
@@ -159,54 +158,50 @@ class BackwardPlan:
     vec: int             # fp32 columns per lane load
     lanes: int           # lanes that share one row
     n_chunks: int        # chunks of BWD_CHUNK sorted entries
-    grid: int            # CTAs of BWD_WARPS warps for the chunk kernels
+    words: int           # 32-bit words of the touched-row bitmap
 
 
-def backward_plan(D: int, grad_ptr: int, n: int,
+def backward_plan(D: int, grad_ptr: int, n: int, rows: int,
                   shifted: bool = False) -> BackwardPlan:
-    """The widest of 4, 2 and 1 fp32 a lane that divides ``D`` and the
-    gradient's base address; a group of ``lanes`` lanes per chunk, as many
-    groups a warp as fit.  A row window's chunks are shifted by its
-    ``window_phase`` and need one chunk more (``shifted``)."""
+    """The launch for ``n`` positions into ``rows`` rows of ``D``
+    columns: the widest of 4, 2 and 1 fp32 a lane that divides ``D`` and
+    the gradient's base address, a group of ``lanes`` lanes per row, and
+    a bit a row.  A row window's chunks are shifted by its phase and need
+    one chunk more (``shifted``)."""
     vec = next(v for v in (4, 2, 1) if D % v == 0 and grad_ptr % (4 * v) == 0)
     lanes = min(32, -(-D // vec))
-    n_chunks = -(-n // BWD_CHUNK) + int(shifted)
-    per_cta = (32 // lanes) * BWD_WARPS
-    return BackwardPlan(vec, lanes, n_chunks,
-                        max(1, min(-(-n_chunks // per_cta), MAX_GRID)))
+    n_chunks = -(-n // BWD_CHUNK) + int(shifted) if n else 0
+    return BackwardPlan(vec, lanes, n_chunks, -(-rows // 32))
 
 
 def sort_positions(indices, offsets, num_rows: int, row_lo: int = 0,
                    row_hi=None):
-    """The backward's sort: every position's clipped row (into
+    """The backward's sort in plain torch (the CUDA wrapper builds the
+    same keys, bags and count with ``embedding_bag_backward_keys``, then
+    sorts them with ``torch.sort``): every position's clipped row (into
     ``[0, num_rows - 1]``) less ``row_lo``, or the window's row count
     ``row_hi - row_lo`` (the whole table by default) for a position
     outside ``[offsets[0], offsets[B])`` or whose row lies outside the
     window ``[row_lo, row_hi)``, sorted stably, and the positions in that
-    order; int32 both.  No host sync."""
+    order; int32 both.  For a window, also the kernel's chunk shift: the
+    in-bag positions whose row lies below it, mod ``BWD_CHUNK`` (int32[1]),
+    so the window's chunks fall where the whole table's sort puts them;
+    None for the whole table.  -> ``(key, perm, phase)`` on the
+    indices' device; no host sync."""
     n = indices.shape[0]
     hi = num_rows if row_hi is None else int(row_hi)
     pos = torch.arange(n, dtype=torch.int32, device=indices.device)
     inside = (pos >= offsets[0]) & (pos < offsets[-1])
     key = indices.clamp(0, num_rows - 1)
+    phase = None
     if (row_lo, hi) != (0, num_rows):
+        below = inside & (key < row_lo)
+        phase = (below.sum() % BWD_CHUNK).to(torch.int32).reshape(1)
         inside = inside & (key >= row_lo) & (key < hi)
         key = key - row_lo
     key = torch.where(inside, key, hi - row_lo)
     key, perm = torch.sort(key, stable=True)
-    return key.to(torch.int32), perm.to(torch.int32)
-
-
-def window_phase(indices, offsets, num_rows: int, row_lo: int):
-    """The backward kernel's chunk shift for a window starting at row
-    ``row_lo``: the in-bag positions whose clipped row lies below it, mod
-    ``BWD_CHUNK`` (int32[1] on the device; no host sync), so the
-    window's chunks fall where the whole table's sort puts them."""
-    n = indices.shape[0]
-    pos = torch.arange(n, dtype=torch.int32, device=indices.device)
-    inside = (pos >= offsets[0]) & (pos < offsets[-1])
-    below = inside & (indices.clamp(0, num_rows - 1) < row_lo)
-    return (below.sum() % BWD_CHUNK).to(torch.int32).reshape(1)
+    return key.to(torch.int32), perm.to(torch.int32), phase
 
 
 def embedding_bag_backward(grad_out, indices, offsets, mode: str,
@@ -214,10 +209,10 @@ def embedding_bag_backward(grad_out, indices, offsets, mode: str,
                            row_hi=None):
     """The table's gradient, ``[num_rows, D]`` in ``dtype`` (rows
     ``[row_lo, row_hi)`` of it alone, ``[row_hi - row_lo, D]``, for a
-    window): one launch (the plan's sort, then the kernels); see
-    ``csrc/embedding_bag_backward.cu``, which sees the window's rows as
-    its table (the sort gives every other position the key "outside
-    every bag")."""
+    window): one launch (the sort keys, the plan's sort, then the
+    kernels); see ``csrc/embedding_bag_backward.cu``, which sees the
+    window's rows as its table (the keys give every other position the
+    key "outside every bag")."""
     name = "embedding_bag_backward"
     _cuda.require_cuda(name, grad_out, indices, offsets)
     if mode not in MODES:
@@ -245,23 +240,33 @@ def embedding_bag_backward(grad_out, indices, offsets, mode: str,
     if hi == lo or D == 0:
         return out
     n = indices.shape[0]
-    key, perm = sort_positions(indices, offsets, R, lo, hi)
     windowed = (lo, hi) != (0, R)
-    phase = window_phase(indices, offsets, R, lo) if windowed else None
-    plan = backward_plan(D, grad_out.data_ptr(), n, shifted=windowed)
-    bag_of = torch.empty(n, dtype=torch.int32, device=dev)
+    plan = backward_plan(D, grad_out.data_ptr(), n, hi - lo,
+                         shifted=windowed)
+    lib, stream = _cuda.lib(), _cuda.stream_ptr(dev)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    bag_of = torch.empty_like(key)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    touched = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    embedding_bag_backward.launches += 1
+    _cuda.check(lib.embedding_bag_backward_keys(
+        indices.data_ptr(), offsets.data_ptr(), n, B, R, lo, hi,
+        key.data_ptr(), bag_of.data_ptr(), counts.data_ptr(),
+        touched.data_ptr(), plan.words, stream), name)
+    key, perm = torch.sort(key, stable=True)
+    sbag = torch.empty_like(bag_of)
     head = torch.empty(plan.n_chunks * D, dtype=torch.float32, device=dev)
     tail = torch.empty_like(head)
-    flags = torch.empty(plan.n_chunks, dtype=torch.uint8, device=dev)
-    embedding_bag_backward.launches += 1
-    err = _cuda.lib().embedding_bag_backward_launch(
+    runs = torch.empty(plan.n_chunks * 3, dtype=torch.int32, device=dev)
+    n_runs = torch.empty(2, dtype=torch.int32, device=dev)
+    _cuda.check(lib.embedding_bag_backward_launch(
         grad_out.data_ptr(), B, D, offsets.data_ptr(), key.data_ptr(),
-        perm.data_ptr(), None if phase is None else phase.data_ptr(), n,
-        hi - lo, MODES[mode], _BF16[dtype], plan.vec,
-        plan.lanes, plan.grid, bag_of.data_ptr(), head.data_ptr(),
-        tail.data_ptr(), flags.data_ptr(), out.data_ptr(),
-        _cuda.sm_count(dev), _cuda.stream_ptr(dev))
-    _cuda.check(err, name)
+        perm.data_ptr(), counts.data_ptr() if windowed else None,
+        counts[1:].data_ptr(), n,
+        hi - lo, MODES[mode], _BF16[dtype], plan.vec, plan.lanes,
+        _cuda.sm_count(dev), bag_of.data_ptr(), sbag.data_ptr(),
+        touched.data_ptr(), head.data_ptr(), tail.data_ptr(),
+        runs.data_ptr(), n_runs.data_ptr(), out.data_ptr(), stream), name)
     return out
 
 

@@ -138,3 +138,44 @@ def profiled_total_ms(fn, match: str, reps: int = 1, warmup: int = 1):
           if e.device_type == torch.autograd.DeviceType.CUDA
           and match in e.name]
     return sum(ks) / reps / 1e3, len(ks)
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's short name: the identifier before its template
+    arguments or parameters (``bag_bwd_rows``,
+    ``DeviceRadixSortOnesweepKernel``, ``vectorized_elementwise_kernel``)."""
+    head = name.replace("(anonymous namespace)::", "")
+    head = head[5:] if head.startswith("void ") else head
+    return head.split("(")[0].split("<")[0].split("::")[-1].strip() or name
+
+
+def profiled_parts(fn, reps: int = 5, warmup: int = 2):
+    """Each device kernel's summed duration per call of ``fn``, by short
+    name (:func:`kernel_name`), from the profiler's kernel records of
+    ``reps`` calls in one session after 64 one-element fills and one
+    call, which absorb events a session may drop: ``({name: ms}, busy
+    ms)``, both per call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    _warm(fn, warmup)
+    pad = torch.empty(1, device="cuda")
+    mark = "timing.profiled_parts"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.zero_()
+        fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == mark)
+    parts = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name != mark and e.time_range.start >= start:
+            k = kernel_name(e.name)
+            parts[k] = parts.get(k, 0.0) + e.device_time_total / 1e3 / reps
+    return parts, sum(parts.values())

@@ -281,7 +281,8 @@ def test_whole_window_is_the_seed_call(dtype, mode):
                 tref.embedding_bag_backward_ref(g, i, o, mode, R, dtype,
                                                 row_lo=0, row_hi=R)):
         assert torch.equal(got, want)
-    key, perm = teb.sort_positions(i, o, R)
+    key, perm, phase = teb.sort_positions(i, o, R)
+    assert phase is None
     assert torch.equal(teb.sort_positions(i, o, R, 0, R)[0], key)
 
 
@@ -311,8 +312,8 @@ def test_in_order_windows_sum_to_the_whole():
 
 def _mirror_backward(key, perm, bag_of, g, R, phase=None):
     """The backward kernel's order in numpy (``csrc/embedding_bag_
-    backward.cu``, its chunk and combine kernels): chunks of
-    ``BWD_CHUNK`` sorted entries (shifted by ``phase``), each run summed
+    backward.cu``): chunks of ``BWD_CHUNK`` sorted entries (shifted by
+    ``phase``), each run summed
     from 0.0 in order inside a chunk (a run that began earlier kept as
     the chunk's head, one that goes on as its tail), then each owning
     chunk's tail plus the heads after it."""
@@ -370,7 +371,7 @@ def _mirror_backward(key, perm, bag_of, g, R, phase=None):
 @pytest.mark.parametrize("S", [2, 4])
 def test_backward_kernel_phase_keeps_the_whole_order(S):
     """The windowed backward kernel's plan, walked in numpy: the sort's
-    keys, ``window_phase`` and the shifted chunks give each window's rows
+    keys, its phase and the shifted chunks give each window's rows
     the whole call's chunk boundaries, so the windows concatenate to the
     whole walk bit for bit (rows of many contributions, runs across
     chunks, positions outside every bag and outside the window)."""
@@ -384,12 +385,12 @@ def test_backward_kernel_phase_keeps_the_whole_order(S):
     i, o = _t(idx, off)
     pos = np.arange(n)
     bag_of = np.searchsorted(off[1:], pos, side="right")
-    key, perm = teb.sort_positions(i, o, R)
+    key, perm, _ = teb.sort_positions(i, o, R)
     whole = _mirror_backward(key.numpy(), perm.numpy(), bag_of, g, R)
     parts = []
     for lo, hi in _windows(R, S):
-        key, perm = teb.sort_positions(i, o, R, lo, hi)
-        ph = int(teb.window_phase(i, o, R, lo)[0])
+        key, perm, ph = teb.sort_positions(i, o, R, lo, hi)
+        ph = int(ph[0])
         parts.append(_mirror_backward(key.numpy(), perm.numpy(), bag_of, g,
                                       hi - lo, ph))
     assert np.array_equal(np.concatenate(parts), whole)
