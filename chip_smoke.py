@@ -9,7 +9,9 @@ Phases, in order (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi``), torch/CUDA versions, the kernel build;
   2. every CUDA kernel against its plain torch version on the card, at
-     the main path's shapes, bit for bit (the two frozen-segment kernels
+     the main path's shapes, bit for bit (``bulk_append`` on each edge
+     case of ``launch/time_bulk_append.py``, on clones of one state; the
+     two frozen-segment kernels
      twice on each edge case of ``launch/time_segment_intersect.py`` and
      twice at the path's shapes, the scored kernel at three thresholds:
      none, about half the blocks skipped, all skipped;
@@ -314,6 +316,7 @@ from repro_torch.kernels import segment_intersect as si  # noqa: E402
 from repro_torch.kernels.timing import (cuda_ms, cuda_ms_cold,  # noqa: E402
                                         profiled_ms, profiled_total_ms)
 from repro_torch.launch import serve as paged_serve  # noqa: E402
+from repro_torch.launch import time_bulk_append as tba  # noqa: E402
 from repro_torch.launch import time_embedding_bag as tbag  # noqa: E402
 from repro_torch.launch import time_embedding_bag_backward as tbwd  # noqa: E402,E501
 from repro_torch.launch import time_intersect_mask as tim  # noqa: E402
@@ -570,6 +573,28 @@ def segment_edge_cases() -> int:
     return len(cases)
 
 
+def bulk_append_edge_cases() -> int:
+    """``bulk_append`` on the card against its plain version on the edge
+    cases of ``launch/time_bulk_append.py`` (lane counts at the kernel's
+    tile, lanes-a-thread and wave edges, 8a's and phase 2's batches;
+    streams at storage offset 1; every lane skipping, every lane
+    landing, random landings; the addresses -1, H - 1, H, 2**40, V - 1
+    and V), each on clones of one state: heap, tail and freq bit for
+    bit.  Returns the count of cases."""
+    state = tba.edge_state(device="cuda")
+    cases = tba.edge_cases(
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    for name, scat in cases:
+        got = [t.clone() for t in state]
+        want = [t.clone() for t in state]
+        ops.bulk_append(*got, *scat)
+        ref.bulk_append_ref(*want, *scat)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("heap", "tail", "freq"), got, want):
+            require_equal(f"bulk_append/{name}/{part}", g, w)
+    return len(cases)
+
+
 def segment_times(kernel: str, call, flush) -> dict:
     """Warm, L2-flushed and profiler times of one frozen-segment call."""
     dev_ms, seen = profiled_ms(call, tsg.KERNEL_NAMES[kernel])
@@ -603,6 +628,11 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
     rng = np.random.default_rng(seed)
 
     # -- bulk_append on a real arrival batch into the full-size pools ---
+    if docs.shape[0] == tba.STREAM_DOCS and (
+            layout.slices_per_pool != tba.PHASE2_POOLS or not np.array_equal(
+                docs[:5 * BATCH], tba.stream_prefix(5 * BATCH))):
+        raise AssertionError("launch/time_bulk_append.py no longer rebuilds "
+                             "phase 2's batch (its stream or its pools)")
     seg = ActiveSegment(layout, vocab, device="cuda")
     for i in range(4):
         seg.ingest(docs[i * BATCH:(i + 1) * BATCH])
@@ -618,15 +648,16 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
     torch.cuda.synchronize()
     err = max(require_equal(f"bulk_append/{name}", g, w)
               for name, g, w in zip(("heap", "tail", "freq"), k_out, r_out))
-    n = scat[0].shape[0]
     H, V = st.heap.shape[0], st.tail.shape[0]
-    live = [(a >= 0) & (a < cap) for a, cap in
-            ((scat[0], H), (scat[2], H), (scat[4], V))]
-    landed = [int(m.sum()) for m in live]
-    skips = n - landed[0]
+    live = tba.landing(scat, H, V)
+    b = tba.bound_bytes(scat, H, V)
+    n, nbytes = b["lanes"], b["bytes"]
+    skips = n - b["postings"]
     if skips == 0:
         raise AssertionError("bulk_append case has no skip lanes")
-    nbytes = n * (6 * 8 + 4) + 8 * (landed[0] + landed[1]) + 12 * landed[2]
+    n_edge = bulk_append_edge_cases()
+    log(f"bulk_append: {n_edge} edge cases bit-identical on clones of one "
+        f"state")
     pre = [(scat[0][live[0]], scat[1][live[0]]),
            (scat[2][live[1]], scat[3][live[1]]),
            (scat[4][live[2]], scat[5][live[2]]),
@@ -641,19 +672,24 @@ def phase_kernels(docs: np.ndarray, layout, vocab: int, seg_docs: int,
         ms=cuda_ms(lambda: ops.bulk_append(*k_out, *scat)),
         plain_ms=cuda_ms(lambda: ref.bulk_append_ref(*r_out, *scat)),
         library_ms=cuda_ms(library), bytes=nbytes, max_abs_err=err,
-        shape=f"N={n} lanes ({landed[0]} postings, {landed[1]} pointers, "
-              f"{landed[2]} terms land; {skips} skip), heap {H}")
+        shape=f"N={n} lanes ({b['postings']} postings, {b['pointers']} "
+              f"pointers, {b['terms']} terms land; {skips} skip), heap {H}")
     # the same call L2-flushed, and the profiler's own kernel durations:
-    # its 15.5 MB fit the 50 MB L2, so warm repeats may beat HBM
+    # its streams (15.5 MB) fit the 50 MB L2, so warm repeats may beat HBM
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     r = rows["bulk_append"]
     r["ms_cold"] = cuda_ms_cold(lambda: ops.bulk_append(*k_out, *scat), flush)
     r["device_ms"], seen = profiled_ms(
         lambda: ops.bulk_append(*k_out, *scat), "bulk_append_kernel")
+    old = b["bytes_all_lanes"]
     log(f"bulk_append: {r['ms_cold']:.4f} ms L2-flushed; profiler "
         + ("not measured" if r["device_ms"] is None else
            f"{r['device_ms']:.4f} ms per launch") + f" ({seen} kernels "
-        f"seen); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"seen); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} "
+        f"bytes as the batch needs them: every lane's three addresses, the "
+        f"landing lanes' values read and written; "
+        f"{old / HBM_BYTES_PER_S * 1e3:.4f} ms for all seven streams of "
+        f"every lane, {old} bytes)")
     del seg, st, k_out, r_out, pre, flush
     torch.cuda.empty_cache()
 

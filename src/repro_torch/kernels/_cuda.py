@@ -31,7 +31,7 @@ _I64 = ctypes.c_int64
 # sizes as int64; each returns the launch's cudaError_t.
 _SIGNATURES = {
     "bulk_append_launch": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P,
-                           _P, _I64, _P],
+                           _P, _I64, _I64, _I64, _I64, _P],
     "intersect_mask_launch": [_P, _P, _P, _I64, _I64, _I64, _P],
     "segment_intersect_launch": [_P, _P, _P, _P, _P, _I64, _I64,
                                  _P, _P, _P, _P, _P, _I64, _I64,
